@@ -1,0 +1,25 @@
+"""Hand-written Hopper kernels of the port and their plain PyTorch twins.
+
+Each wrapper takes its plain version only for a tensor on the CPU; for a
+CUDA tensor it launches its kernel or raises. Each keeps a launch count
+(`wrapper.launches`) that only a kernel launch increments.
+"""
+
+from ffrnet_torch.ops.kernels.channel_branch import channel_branch
+from ffrnet_torch.ops.kernels.se_gating import se_gating
+from ffrnet_torch.ops.kernels.self_similarity import self_similarity_fused
+
+WRAPPERS = {
+    "se_gating": se_gating,
+    "self_similarity": self_similarity_fused,
+    "channel_branch": channel_branch,
+}
+
+
+def reset_launch_counts() -> None:
+    for w in WRAPPERS.values():
+        w.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: w.launches for name, w in WRAPPERS.items()}
