@@ -1,4 +1,4 @@
-"""Drive the PyTorch/H100 port's inference path on one NVIDIA GPU.
+"""Drive the PyTorch/H100 port's inference and ingest paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -6,15 +6,22 @@ Phases, each printing its own lines; any failure raises and the script
 exits non-zero without a result line:
 
   1. device   the card's name and power limit (fails without a card)
-  2. build    the three CUDA kernels from ffrnet_torch/csrc, nvcc for sm_90a
+  2. build    the four kernel libraries from ffrnet_torch/csrc, one nvcc
+              each for sm_90a, all at once
   3. kernels  each kernel vs its plain PyTorch version at the main path's
-              shapes, N=64, fp32 (TF32 off) and bf16, with the tolerances
+              shapes, N=64, fp32 (TF32 off) and bf16, with the tolerances;
+              the two warps on 250x250x3 noise, to 112x112 and 112x96
   4. main     FFRNet.random(seed=0) embed / verify / evaluate in both RecNet
               configurations (fused channel branch; self-similarity kernel),
               plus a BN-folded model; whole-path parity with the CPU
-  5. counts   the launch counts of the main path's runs
-  6. times    embed faces/s at N=256 (fp32, bf16) and each kernel's time
-              beside its plain version and its bound, with CUDA events
+  5. ingest   FFRNet.embed_canvas (embed_files after the decode) on the
+              golden fixture's face, 64 faces through the band kernel and 4
+              extreme ones through the full kernel; crop 0 against the
+              pinned crop, crops and embeddings against the CPU
+  6. counts   the launch counts of the main and ingest paths' runs
+  7. times    embed faces/s at N=256 (fp32, bf16), ingest faces/s, and each
+              kernel's time beside its plain version, its bound and, for
+              the warps, F.affine_grid + F.grid_sample, with CUDA events
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit as nvidia-smi gives them, and the result line
@@ -45,7 +52,10 @@ KERNELS = {
                         "ffrnet_tpu/ops/pallas/self_similarity.py:67"),
     "channel_branch": ("ffrnet_torch/csrc/channel_branch.cu",
                        "ffrnet_tpu/ops/pallas/channel_branch.py:136"),
+    "warp_affine_full": ("ffrnet_torch/csrc/warp.cu", "ffrnet_tpu/ops/pallas/warp.py:88"),
+    "warp_affine_band": ("ffrnet_torch/csrc/warp.cu", "ffrnet_tpu/ops/pallas/warp.py:182"),
 }
+WARPS = ("warp_affine_full", "warp_affine_band")
 # (H, C, units) of the IR-SE50 stages: 24 SE gates per encoder forward
 SE_STAGES = ((56, 64, 3), (28, 128, 4), (14, 256, 14), (7, 512, 3))
 # tolerances: fp32 sums in another order (512-term for channel_branch);
@@ -56,6 +66,18 @@ BF16_TOL = (2e-2, 2e-2)
 # card vs CPU, fp32 with TF32 off: convolutions summed in other orders
 # through 49 conv layers
 PATH_TOL = (1e-4, 1e-4)
+# warps, 0-255 pixels: kernel and twin round the same fp32 operations, so
+# they agree to the bit (0 expected); fp32 outputs 1e-4, bf16 outputs one
+# bf16 step at 128-255
+WARP_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1.0, 0.0)}
+# F.grid_sample vs the plain warp: its coordinates pass through [-1, 1]
+# and back, about 1e-5 px off on a 250 px source
+LIBRARY_WARP_TOL = (5e-2, 0.0)
+# the pinned crop of tests/fixtures/golden (JAX's gather warp on fp32
+# matrices) vs the port's guarded warp: the JAX package's bound for its
+# non-gather paths (tests/test_golden_e2e.py)
+GOLDEN_CROP_TOL = (2e-2, 0.0)
+GOLDEN = os.path.join(HERE, "tests", "fixtures", "golden", "expected.npz")
 
 
 def log(phase, msg):
@@ -200,6 +222,88 @@ def phase_kernels(model, dev):
     return errs
 
 
+def face_landmarks(n, seed):
+    """tests/test_pallas_kernels.py's recipe: the ArcFace reference points
+    at the LFW face scale with 2 px of noise, (n, 5, 2) float32."""
+    from ffrnet_torch.ops.align import ARCFACE_REF_PTS
+
+    rng = np.random.default_rng(seed)
+    return (ARCFACE_REF_PTS[None] * 2.1 + rng.normal(0, 2, (n, 5, 2)) + 15).astype(np.float32)
+
+
+def rotated(lmk, theta, scale=1.0, center=None):
+    """Landmarks rotated by `theta` about their mean, scaled, and moved so
+    that their mean lands on `center`."""
+    rot = np.array([[np.cos(theta), -np.sin(theta)], [np.sin(theta), np.cos(theta)]])
+    mean = lmk.mean(-2, keepdims=True)
+    return (((lmk - mean) @ rot.T) * scale
+            + (mean if center is None else np.asarray(center))).astype(np.float32)
+
+
+def warp_mats(lmk, ref_pts):
+    from ffrnet_torch.ops.align import cv2_transform
+
+    ref = torch.from_numpy(np.broadcast_to(ref_pts, lmk.shape).copy())
+    return cv2_transform(torch.from_numpy(lmk), ref)
+
+
+def phase_warp_kernels(dev):
+    """Both warps vs their twins on uniform noise, N=64, 250x250x3."""
+    from ffrnet_torch.api import REF_PTS_112
+    from ffrnet_torch.ops.align import ARCFACE_REF_PTS, auto_band_crop_w, warp_affine
+    from ffrnet_torch.ops.kernels.warp import (warp_affine_band, warp_affine_band_plain,
+                                               warp_affine_full, warp_affine_full_plain)
+
+    n = 64
+    imgs = torch.from_numpy(np.random.default_rng(60).uniform(0, 255, (n, 250, 250, 3))
+                            .astype(np.float32)).to(dev)
+    lmk = face_landmarks(n, 61)
+    errs = {k: 0.0 for k in WARPS}
+
+    def check(name, what, got, want):
+        tol = WARP_TOL[got.dtype]
+        e = check_close(f"{name} {what}", got, want, *tol)
+        log("kernels", f"{name} {what} max_abs_err {e:.3e} tol atol={tol[0]}")
+        if got.dtype == torch.float32:
+            errs[name] = max(errs[name], e)
+
+    for out_hw, ref in (((112, 112), REF_PTS_112), ((112, 96), ARCFACE_REF_PTS)):
+        mats = warp_mats(lmk, ref).to(dev)
+        for cd in (torch.float32, torch.bfloat16):
+            check("warp_affine_full", f"{out_hw} compute {cd}",
+                  warp_affine_full(imgs, mats, out_hw=out_hw, compute_dtype=cd),
+                  warp_affine_full_plain(imgs, mats, out_hw=out_hw, compute_dtype=cd))
+        guard = auto_band_crop_w(lmk, ref, (250, 250), out_hw[0])
+        for cw in sorted({64, 96, guard}):
+            check("warp_affine_band", f"{out_hw} crop_w {cw}{' (guard)' if cw == guard else ''}",
+                  warp_affine_band(imgs, mats, out_hw=out_hw, crop_w=cw),
+                  warp_affine_band_plain(imgs, mats, out_hw=out_hw, crop_w=cw))
+    # the band contract violated: faces rotated 0.5 rad need a ~170-column
+    # window; at crop_w 64 kernel and twin still compute the same thing
+    lmk_rot = rotated(lmk, 0.5)
+    mats = warp_mats(lmk_rot, REF_PTS_112).to(dev)
+    need = auto_band_crop_w(lmk_rot, REF_PTS_112, (250, 250), 112)
+    got = warp_affine_band(imgs, mats, out_hw=(112, 112), crop_w=64)
+    check("warp_affine_band", f"violated bound (guard wants {need}) crop_w 64", got,
+          warp_affine_band_plain(imgs, mats, out_hw=(112, 112), crop_w=64))
+    off = (got - warp_affine(imgs, mats, out_hw=(112, 112))).abs().max().item()
+    if need is not None and need <= 64 or off < 1.0:
+        raise AssertionError(f"the violated-bound case is not violated (guard {need}, "
+                             f"{off:.3f} off the gather)")
+    log("kernels", f"warp_affine_band violated bound: {off:.1f} off the gather, as the "
+        f"Pallas kernel would be")
+    # bfloat16 images, once for each kernel
+    mats = warp_mats(lmk, REF_PTS_112).to(dev)
+    imgs_bf = imgs.bfloat16()
+    check("warp_affine_full", "bf16 images", warp_affine_full(imgs_bf, mats, out_hw=(112, 112)),
+          warp_affine_full_plain(imgs_bf, mats, out_hw=(112, 112)))
+    check("warp_affine_band", "bf16 images",
+          warp_affine_band(imgs_bf, mats, out_hw=(112, 112), crop_w=96),
+          warp_affine_band_plain(imgs_bf, mats, out_hw=(112, 112), crop_w=96))
+    torch.cuda.synchronize()
+    return errs
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -272,12 +376,81 @@ def phase_main(models, dev):
     return counts
 
 
-def phase_counts(counts):
+# ------------------------------------------------------------------ phase 5
+
+
+def ingest_batches():
+    """The golden fixture's decoded face as host uint8 canvases: 64 copies
+    with its landmarks (perturbed by 2 px beyond the first), and 4 with
+    landmarks scaled x12 and rotated 0.5 rad about the image's centre, which
+    no band window covers (x12 alone still fits a 224-wide band)."""
+    from ffrnet_torch.ops.align import ARCFACE_REF_PTS
+
+    exp = np.load(GOLDEN)
+    lmk = exp["landmarks"].astype(np.float32)
+    faces = np.repeat(exp["decoded"][None], 64, axis=0)
+    lmk64 = np.repeat(lmk[None], 64, axis=0)
+    lmk64[1:] += np.random.default_rng(70).normal(0, 2, (63, 5, 2)).astype(np.float32)
+    extreme = rotated(np.repeat(ARCFACE_REF_PTS[None] * 12.0, 4, axis=0), 0.5,
+                      center=(125.0, 125.0))
+    return exp, (faces, lmk64), (faces[:4].copy(), extreme)
+
+
+def phase_ingest(model, dev):
+    """embed_canvas in the fused configuration: returns the launch counts
+    of the two card runs."""
+    from ffrnet_torch.api import FFRNet, REF_PTS_112
+    from ffrnet_torch.ops.align import ARCFACE_REF_PTS, auto_band_crop_w
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    exp, (faces, lmk), (faces_x, lmk_x) = ingest_batches()
+    cw = auto_band_crop_w(lmk, ARCFACE_REF_PTS, faces.shape[1:3], 112)
+    if cw is None or auto_band_crop_w(lmk_x, REF_PTS_112, faces.shape[1:3], 112) is not None:
+        raise AssertionError("the ingest batches do not take the band and the full kernel")
+    # the default frame of the pinned crop for the 64 faces; the 112x112
+    # frame of embed_files for the extreme ones
+    runs = ((faces, lmk, ARCFACE_REF_PTS), (faces_x, lmk_x, REF_PTS_112))
+    reset_launch_counts()
+    card = [model.embed_canvas(f, lm, ref_pts=ref) for f, lm, ref in runs]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    raw, rect, crops = card[0]
+    for t, shape in ((raw, (64, 512)), (rect, (64, 512)), (crops, (64, 112, 112, 3)),
+                     (card[1][0], (4, 512))):
+        if tuple(t.shape) != shape or not torch.isfinite(t).all():
+            raise AssertionError(f"ingest: {tuple(t.shape)} not finite {shape}")
+    e_gold = check_close("ingest: crop 0 vs the pinned crop", crops[0].cpu(),
+                         torch.from_numpy(exp["aligned"]), *GOLDEN_CROP_TOL)
+    log("ingest", f"64 fixture faces, band kernel at crop_w {cw}: crop 0 vs the pinned "
+        f"crop max_abs_err {e_gold:.3e} (tol atol={GOLDEN_CROP_TOL[0]}); 4 extreme faces "
+        f"through the full kernel")
+    cpu = FFRNet(model.encoder, model.recnet, model.cfg, "cpu").prepare()
+    for (f, lm, ref), (c_raw, c_rect, c_crops), name in zip(runs, card, ("band", "full")):
+        e_crop = check_close(f"ingest {name}: card vs CPU crops", c_crops.cpu(),
+                             cpu.align(f, lm, out_hw=(112, 112), ref_pts=ref), *PATH_TOL)
+        raw_c, rect_c, _ = cpu.embed_canvas(f[:4], lm[:4], ref_pts=ref)
+        e_raw = check_close(f"ingest {name}: card vs CPU raw", c_raw[:4].cpu(), raw_c,
+                            *PATH_TOL)
+        e_rect = check_close(f"ingest {name}: card vs CPU rect", c_rect[:4].cpu(), rect_c,
+                             *PATH_TOL)
+        log("ingest", f"{name} batch card vs CPU (plain versions): {len(f)} crops max_abs_err "
+            f"{e_crop:.3e}; 4 faces raw {e_raw:.3e}, rect {e_rect:.3e} (tol atol="
+            f"{PATH_TOL[0]} rtol={PATH_TOL[1]})")
+    return counts
+
+
+# ------------------------------------------------------------------ phase 6
+
+
+def phase_counts(counts, ingest):
+    """`counts`: per main-path model, (forwards, launch counts); `ingest`:
+    the launch counts of the ingest path's two embed_canvas calls."""
     total = {k: 0 for k in KERNELS}
     for name, (forwards, c) in counts.items():
         expected = {"se_gating": 24 * forwards,
                     "channel_branch": forwards if name.startswith("fused") else 0,
-                    "self_similarity": forwards if name.startswith("ss_kernel") else 0}
+                    "self_similarity": forwards if name.startswith("ss_kernel") else 0,
+                    "warp_affine_full": 0, "warp_affine_band": 0}
         if c != expected:
             raise AssertionError(f"{name}: launch counts {c}, expected {expected} for "
                                  f"{forwards} forwards")
@@ -285,13 +458,21 @@ def phase_counts(counts):
             f"(24 se_gating per forward, its RecNet kernel once per forward)")
         for k in total:
             total[k] += c[k]
+    expected = {"se_gating": 48, "channel_branch": 2, "self_similarity": 0,
+                "warp_affine_full": 1, "warp_affine_band": 1}
+    if ingest != expected:
+        raise AssertionError(f"ingest: launch counts {ingest}, expected {expected}")
+    log("counts", f"ingest (fused): 2 guarded align calls + 2 forwards -> {ingest} (the band "
+        f"kernel for the 64 faces, the full kernel for the extreme batch)")
+    for k in total:
+        total[k] += ingest[k]
     missing = [k for k, v in total.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     return total
 
 
-# ------------------------------------------------------------------ phase 6
+# ------------------------------------------------------------------ phase 7
 
 
 def bounds(n):
@@ -311,21 +492,65 @@ def bounds(n):
     cb_bytes = 2 * n * c * hw * b + (32 * (hw + c) + 2 * 32 * 32 + c * 32 + 3 * c + 4 * 32 + c) * b
     cb_ops = n * (2 * 32 * c * hw + 4 * c * 32 * hw + 4 * c * 32 * 32 + 2 * c * c * 32
                   + 2 * c * c * hw)
+    # the warps, (n, 250, 250, 3) -> (n, 112, 112, 3) with (n, 2, 3)
+    # matrices: per output pixel 8 operations for its coordinates, 12 for
+    # its four tent weights, 9 per channel for the 2x2 taps
+    h, w, ch, p_out = 250, 250, 3, 112 * 112
+    warp_bytes = (n * h * w * ch + n * 6 + n * p_out * ch) * b
+    warp_ops = n * p_out * (20 + 9 * ch)
     out = {}
     for k, (by, ops) in {"se_gating": (se_bytes, se_ops), "self_similarity": (ss_bytes, ss_ops),
-                         "channel_branch": (cb_bytes, cb_ops)}.items():
+                         "channel_branch": (cb_bytes, cb_ops),
+                         "warp_affine_full": (warp_bytes, warp_ops),
+                         "warp_affine_band": (warp_bytes, warp_ops)}.items():
         t_bytes, t_ops = by / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
         out[k] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
     return out
 
 
+def grid_sample_theta(mats, src_hw, out_hw):
+    """F.affine_grid's theta (normalized output -> normalized source, with
+    align_corners=True) for cv2-convention forward matrices."""
+    from ffrnet_torch.ops.align import _invert_2x3
+
+    inv = _invert_2x3(mats.float()).double()
+    half_w, half_h = (out_hw[1] - 1) / 2, (out_hw[0] - 1) / 2
+    theta = torch.empty_like(inv)
+    for r, size in ((0, src_hw[1]), (1, src_hw[0])):
+        k = 2.0 / (size - 1)
+        theta[:, r, 0] = k * inv[:, r, 0] * half_w
+        theta[:, r, 1] = k * inv[:, r, 1] * half_h
+        theta[:, r, 2] = k * (inv[:, r, 0] * half_w + inv[:, r, 1] * half_h + inv[:, r, 2]) - 1
+    return theta.float()
+
+
 def phase_times(models, dev, card):
+    from ffrnet_torch.api import REF_PTS_112
+    from ffrnet_torch.ops.align import auto_band_crop_w
     from ffrnet_torch.ops.kernels.channel_branch import channel_branch, channel_branch_plain
     from ffrnet_torch.ops.kernels.se_gating import se_gating, se_gating_plain
     from ffrnet_torch.ops.kernels.self_similarity import (self_similarity_fused,
                                                           self_similarity_fused_plain)
+    from ffrnet_torch.ops.kernels.warp import (warp_affine_band, warp_affine_band_plain,
+                                               warp_affine_full, warp_affine_full_plain)
 
     n = 256
+    # ingest: host uint8 canvases of the fixture's face in, both embeddings
+    # out (fused fp32)
+    exp = np.load(GOLDEN)
+    canvas = np.repeat(exp["decoded"][None], n, axis=0)
+    lmk = exp["landmarks"].astype(np.float32) + np.random.default_rng(41).normal(
+        0, 2, (n, 5, 2)).astype(np.float32)
+    t = host_ms(lambda: models["fused"].embed_canvas(canvas, lmk), samples=10)
+    log("times", f"ingest fused fp32 N={n} (250x250x3 uint8 -> 112x112 -> embed): median "
+        f"{np.median(t):.3f} ms/batch (max {t.max():.3f}, 10 samples), "
+        f"{n / np.median(t) * 1e3:.1f} faces/s | {card}")
+    # its alignment alone: host cp2tform and guard, the uint8 upload, the
+    # cast and the band kernel
+    t = host_ms(lambda: models["fused"].align(canvas, lmk, out_hw=(112, 112),
+                                              ref_pts=REF_PTS_112), samples=10)
+    log("times", f"ingest's align alone N={n}: median {np.median(t):.3f} ms/batch (max "
+        f"{t.max():.3f}, 10 samples) | {card}")
     # host uint8 faces, as a caller hands them over
     faces = torch.randint(0, 256, (n, 112, 112, 3), generator=gen(40),
                           dtype=torch.uint8).numpy()
@@ -362,12 +587,25 @@ def phase_times(models, dev, card):
     x_ss = torch.randn(n, 512, 7, 7, generator=g).to(dev)
     flat = torch.randn(n, 512, 49, generator=g).to(dev)
     w_cb = c4c_weights(models["fused"], 51, True, dev)
+    imgs = (255 * torch.rand(n, 250, 250, 3, generator=g)).to(dev)
+    lmk = face_landmarks(n, 52)
+    mats = warp_mats(lmk, REF_PTS_112).to(dev)
+    cw = auto_band_crop_w(lmk, REF_PTS_112, (250, 250), 112)
+    f32 = torch.float32
     runs = {"se_gating": (se_forward(se_gating), se_forward(se_gating_plain),
                           "24 gates of one IR-SE50 forward"),
             "self_similarity": (lambda: self_similarity_fused(x_ss),
                                 lambda: self_similarity_fused_plain(x_ss), "(256,512,7,7)"),
             "channel_branch": (lambda: channel_branch(flat, w_cb),
-                               lambda: channel_branch_plain(flat, w_cb), "(256,512,49)")}
+                               lambda: channel_branch_plain(flat, w_cb), "(256,512,49)"),
+            "warp_affine_full": (
+                lambda: warp_affine_full(imgs, mats, out_hw=(112, 112), compute_dtype=f32),
+                lambda: warp_affine_full_plain(imgs, mats, out_hw=(112, 112), compute_dtype=f32),
+                "(256,250,250,3) -> 112x112, fp32 compute"),
+            "warp_affine_band": (
+                lambda: warp_affine_band(imgs, mats, out_hw=(112, 112), crop_w=cw),
+                lambda: warp_affine_band_plain(imgs, mats, out_hw=(112, 112), crop_w=cw),
+                f"(256,250,250,3) -> 112x112, crop_w {cw} (guard)")}
     bound = bounds(n)
     times = {}
     for k, (kern, plain, what) in runs.items():
@@ -376,7 +614,24 @@ def phase_times(models, dev, card):
         times[k] = (min(k1, k2), min(p1, p2))
         log("times", f"{k} fp32 {what}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} "
             f"ms, bound {bound[k][0]:.4f} ms ({bound[k][1]}) | {card}")
-    return times, bound
+    # the library's bilinear zero-border warp on an NCHW copy made here,
+    # outside the timed region; first held against the plain warp
+    x_nchw = imgs.permute(0, 3, 1, 2).contiguous()
+    theta = grid_sample_theta(mats, (250, 250), (112, 112))
+    fn = torch.nn.functional
+
+    def library():
+        grid = fn.affine_grid(theta, (n, 3, 112, 112), align_corners=True)
+        return fn.grid_sample(x_nchw, grid, mode="bilinear", padding_mode="zeros",
+                              align_corners=True)
+
+    e = check_close("F.grid_sample vs the plain warp", library().permute(0, 2, 3, 1),
+                    warp_affine_full_plain(imgs, mats, out_hw=(112, 112), compute_dtype=f32),
+                    *LIBRARY_WARP_TOL)
+    lib = min(cuda_ms(library), cuda_ms(library))
+    log("times", f"library F.affine_grid + F.grid_sample (NCHW) same warp: {lib:.4f} ms "
+        f"(max_abs_err {e:.3e} vs the plain warp, tol {LIBRARY_WARP_TOL[0]}) | {card}")
+    return times, bound, {k: lib for k in WARPS}
 
 
 # ---------------------------------------------------------------------- main
@@ -397,12 +652,15 @@ def main():
     log("main", f"models ready: IR-SE50 + RecNet (C=512, 7x7), seed 0; configs "
         f"{ {k: (m.cfg.ss_impl, m.cfg.c4c_impl, m.cfg.channel_impl) for k, m in models.items()} }")
     errs = phase_kernels(fused, dev)
-    counts = phase_counts(phase_main(models, dev))
-    times, bound = phase_times(models, dev, smi)
+    errs.update(phase_warp_kernels(dev))
+    main_counts = phase_main(models, dev)
+    counts = phase_counts(main_counts, phase_ingest(fused, dev))
+    times, bound, library = phase_times(models, dev, smi)
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": counts[k],
          "max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],
-         "bound_ms": bound[k][0], "bound_by": bound[k][1], "library_ms": None, "ok": True}
+         "bound_ms": bound[k][0], "bound_by": bound[k][1], "library_ms": library.get(k),
+         "ok": True}
         for k, (src, rep) in KERNELS.items()]}
     log("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps(record))

@@ -6,12 +6,14 @@
     raw_emb, rect_emb = model.embed(images_nhwc)    # uint8 or [-1, 1] BGR
     scores = model.verify(img1, img2)               # rectified cosine
     acc_rect, acc_raw = model.evaluate(batches)     # full 10-fold sweep
+    crops = model.align(raw_images, landmarks)      # cp2tform + warp kernels
+    raw_emb, rect_emb = model.embed_files(paths, landmarks)  # decode -> embed
 
 Counterpart of ffrnet_tpu/api.py (inference: embed / featurize / verify /
-evaluate). The public boundary keeps the JAX layout: images are
-(N, 112, 112, 3) BGR NHWC, uint8 or [-1, 1] float, and `featurize`
-returns the rectified map as NHWC (N, 7, 7, 512). Inside, everything is
-NCHW.
+evaluate; ingest: align / embed_files). The public boundary keeps the JAX
+layout: images are (N, 112, 112, 3) BGR NHWC, uint8 or [-1, 1] float,
+and `featurize` returns the rectified map as NHWC (N, 7, 7, 512). Inside,
+everything is NCHW.
 
 Entry points default to device="cuda" and raise when there is no card;
 the CPU runs only when the caller asks for it (device="cpu"), and then
@@ -39,9 +41,26 @@ from ffrnet_torch.eval.runner import evaluate_pairs
 from ffrnet_torch.models.irse import build_backbone, check_state_dict
 from ffrnet_torch.models.optimize import fold_backbone_bn
 from ffrnet_torch.models.recnet import RecNetConfig, build_recnet
+from ffrnet_torch.ops.align import ARCFACE_REF_PTS, align_faces
 from ffrnet_torch.ops.nn import images_to_unit_range
 
 _DTYPES = (None, torch.float32, torch.bfloat16)
+# the 112x112 ArcFace frame: the 96x112 reference points shifted +8 in x
+REF_PTS_112 = ARCFACE_REF_PTS + np.asarray([8.0, 0.0], np.float32)
+
+
+def decode_canvas(paths) -> np.ndarray:
+    """Decode image files to RGB and pad them to one zero uint8 canvas
+    (N, max H, max W, 3): zero pixels are the warp's border. Pillow is
+    imported here only; the card's machine may lack it."""
+    from PIL import Image
+
+    imgs = [np.asarray(Image.open(p).convert("RGB"), dtype=np.uint8) for p in paths]
+    canvas = np.zeros((len(imgs), max(a.shape[0] for a in imgs),
+                       max(a.shape[1] for a in imgs), 3), np.uint8)
+    for i, a in enumerate(imgs):
+        canvas[i, :a.shape[0], :a.shape[1]] = a
+    return canvas
 
 
 def resolve_device(device) -> torch.device:
@@ -110,12 +129,16 @@ class FFRNet:
         return model
 
     # ------------------------------------------------------------- inference
+    def _on_device(self, images) -> torch.Tensor:
+        """NHWC images, host array or tensor -> the same type on the device."""
+        x = images if isinstance(images, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(np.asarray(images)))
+        return x.to(self.device, non_blocking=True)
+
     def _unit(self, images) -> torch.Tensor:
         """NHWC images, host or device -> NHWC float on the device; uint8 is
         normalized to [-1, 1] on the device (4x fewer bytes to move)."""
-        x = images if isinstance(images, torch.Tensor) else torch.from_numpy(
-            np.ascontiguousarray(np.asarray(images)))
-        x = x.to(self.device, non_blocking=True)
+        x = self._on_device(images)
         return images_to_unit_range(x) if x.dtype == torch.uint8 else x
 
     @torch.inference_mode()
@@ -158,3 +181,39 @@ class FFRNet:
         (acc_rectified, acc_raw)."""
         res_new, res_raw = evaluate_pairs(self.pair_scores, batches)
         return float(res_new.mean_accuracy), float(res_raw.mean_accuracy)
+
+    # ---------------------------------------------------------------- ingest
+    def align(self, images, landmarks, *, out_hw=(112, 96), ref_pts=None) -> torch.Tensor:
+        """Batched cp2tform alignment on the model's device: (N, H, W, 3)
+        uint8 or float pixels and (N, 5, 2) landmarks -> float crops.
+
+        The default crop is the (H=112, W=96) frame of the ArcFace reference
+        points (lfw/gen_lfw112x96.py:8-17); for 112x112 pass
+        out_hw=(112, 112) and ref_pts=REF_PTS_112. uint8 crosses to the card
+        as uint8 and is cast to float32 there."""
+        return align_faces(self._on_device(images), landmarks, out_hw=out_hw,
+                           ref_pts=ref_pts)
+
+    def embed_canvas(self, canvas, landmarks, *, ref_pts=REF_PTS_112):
+        """Everything of `embed_files` after the decode: (N, H, W, 3) RGB
+        pixels (uint8 or float, host or device) and their landmarks ->
+        (raw embedding, rectified embedding, the 112x112 RGB crops).
+
+        Aligns to 112x112 (guarded band kernel, or the full kernel), flips
+        RGB -> BGR and maps to [-1, 1] as x / 127.5 - 1, then embeds."""
+        crops = self.align(canvas, landmarks, out_hw=(112, 112), ref_pts=ref_pts)
+        d = torch.tensor(127.5, dtype=torch.float32, device=crops.device)  # IEEE division
+        raw, rect = self.embed(crops.flip(-1) / d - 1.0)
+        return raw, rect, crops
+
+    def embed_files(self, paths, landmarks) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Full ingest: image files -> decode -> align on the device -> BGR
+        [-1, 1] -> (raw embedding, rectified embedding).
+
+        paths: N image files; landmarks: (N, 5, 2) pixel (x, y) points in
+        each source. Sources of mixed sizes are padded to a common uint8
+        canvas (`decode_canvas`), which crosses to the card as uint8.
+        Alignment targets the 112x112 ArcFace frame."""
+        raw, rect, _ = self.embed_canvas(decode_canvas(paths),
+                                         np.asarray(landmarks, np.float32))
+        return raw, rect

@@ -8,11 +8,14 @@ CUDA tensor it launches its kernel or raises. Each keeps a launch count
 from ffrnet_torch.ops.kernels.channel_branch import channel_branch
 from ffrnet_torch.ops.kernels.se_gating import se_gating
 from ffrnet_torch.ops.kernels.self_similarity import self_similarity_fused
+from ffrnet_torch.ops.kernels.warp import warp_affine_band, warp_affine_full
 
 WRAPPERS = {
     "se_gating": se_gating,
     "self_similarity": self_similarity_fused,
     "channel_branch": channel_branch,
+    "warp_affine_full": warp_affine_full,
+    "warp_affine_band": warp_affine_band,
 }
 
 

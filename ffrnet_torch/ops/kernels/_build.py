@@ -25,7 +25,7 @@ import torch
 PKG_ROOT = Path(__file__).resolve().parents[2]
 CSRC = PKG_ROOT / "csrc"
 BUILD_DIR = PKG_ROOT / "_build"
-KERNELS = ("se_gating", "self_similarity", "channel_branch")
+KERNELS = ("se_gating", "self_similarity", "channel_branch", "warp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

@@ -10,11 +10,14 @@ import numpy as np
 import pytest
 import torch
 
+from ffrnet_torch.ops.align import ARCFACE_REF_PTS, cv2_transform
 from ffrnet_torch.ops.kernels.channel_branch import (_collapse, channel_branch,
                                                      channel_branch_plain)
 from ffrnet_torch.ops.kernels.se_gating import se_gating, se_gating_plain
 from ffrnet_torch.ops.kernels.self_similarity import (
     self_similarity_fused, self_similarity_fused_plain)
+from ffrnet_torch.ops.kernels.warp import (warp_affine_band, warp_affine_band_plain,
+                                           warp_affine_full, warp_affine_full_plain)
 
 # fp32: reassociation of short sums; bf16: one rounding of the output at
 # 8 mantissa bits (2^-8 ~ 4e-3 relative), with room for a flipped rounding
@@ -75,3 +78,29 @@ def test_cuda_kernels_match_plain(cuda, dtype):
         tol = TOL[dtype] if dtype == "bfloat16" else dict(atol=1e-4, rtol=1e-4)
         torch.testing.assert_close(channel_branch(flat, weights).float(),
                                    channel_branch_plain(flat, weights).float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_warps_match_plain(cuda, dtype):
+    """Kernel and twin round the same fp32 operations: equal to the bit
+    (the tolerance allows one output step of the type on 0-255 pixels)."""
+    rng = np.random.default_rng(1)
+    imgs = torch.from_numpy(rng.uniform(0, 255, (3, 250, 250, 3)).astype(np.float32))
+    imgs = imgs.to(cuda, TDT[dtype])
+    lmk = (ARCFACE_REF_PTS[None] * 2.1 + rng.normal(0, 2, (3, 5, 2)) + 15).astype(np.float32)
+    ref = torch.from_numpy(np.broadcast_to(ARCFACE_REF_PTS, lmk.shape).copy())
+    mats = cv2_transform(torch.from_numpy(lmk), ref).to(cuda)
+    tol = dict(atol=1e-4, rtol=0) if dtype == "float32" else dict(atol=1.0, rtol=0)
+    for out_hw in ((112, 112), (112, 96)):
+        for cd in (torch.float32, torch.bfloat16):
+            torch.testing.assert_close(
+                warp_affine_full(imgs, mats, out_hw=out_hw, compute_dtype=cd).float(),
+                warp_affine_full_plain(imgs, mats, out_hw=out_hw, compute_dtype=cd).float(),
+                **tol)
+        for crop_w in (64, 96, 224):
+            got = warp_affine_band(imgs, mats, out_hw=out_hw, crop_w=crop_w)
+            assert got.dtype == imgs.dtype
+            torch.testing.assert_close(
+                got.float(),
+                warp_affine_band_plain(imgs, mats, out_hw=out_hw, crop_w=crop_w).float(), **tol)

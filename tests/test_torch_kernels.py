@@ -16,6 +16,7 @@ from ffrnet_torch.ops.kernels import _build
 from ffrnet_torch.ops.kernels.channel_branch import _collapse, channel_branch
 from ffrnet_torch.ops.kernels.se_gating import se_gating
 from ffrnet_torch.ops.kernels.self_similarity import self_similarity_fused
+from ffrnet_torch.ops.kernels.warp import warp_affine_band, warp_affine_full
 from ffrnet_torch.ops.similarity import self_similarity as t_self_similarity
 from ffrnet_tpu.ops.pallas.channel_branch import _collapse as j_collapse
 from ffrnet_tpu.ops.pallas.channel_branch import channel_branch_pallas
@@ -102,22 +103,26 @@ def test_channel_branch_matches_pallas(biases):
 def test_wrappers_count_only_kernel_launches():
     """On the CPU every wrapper takes its plain twin, and a plain call is
     not a launch."""
-    for w in (se_gating, self_similarity_fused, channel_branch):
+    wrappers = (se_gating, self_similarity_fused, channel_branch, warp_affine_full,
+                warp_affine_band)
+    for w in wrappers:
         w.launches = 0
     x = torch.randn(1, 512, 7, 7)
     se_gating(x, torch.randn(32, 512), torch.randn(512, 32))
     self_similarity_fused(x)
     tree = _tree_map(_c4c_tree(0, True), torch.from_numpy)
     channel_branch(x.reshape(1, 512, 49), _collapse(tree))
-    assert (se_gating.launches, self_similarity_fused.launches,
-            channel_branch.launches) == (0, 0, 0)
+    img, mat = torch.rand(1, 40, 40, 3), torch.tensor([[[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]])
+    warp_affine_full(img, mat, out_hw=(8, 8))
+    warp_affine_band(img, mat, out_hw=(8, 8))
+    assert tuple(w.launches for w in wrappers) == (0, 0, 0, 0, 0)
 
 
 def test_build_key_tracks_sources():
     """Each kernel library is keyed on its sources and flags, under the
     package's ignored build directory."""
     paths = {n: _build.library_path(n) for n in _build.KERNELS}
-    assert len(set(paths.values())) == 3
+    assert len(set(paths.values())) == len(_build.KERNELS) == 4
     for n, p in paths.items():
         assert p.parent == _build.BUILD_DIR and p.name.startswith(f"lib{n}-")
         assert (_build.CSRC / f"{n}.cu").is_file()
