@@ -10,7 +10,9 @@ exits non-zero without a result line:
               each for sm_90a, all at once
   3. kernels  each kernel vs its plain PyTorch version at the main path's
               shapes, N=64, fp32 (TF32 off) and bf16, with the tolerances;
-              the two warps on 250x250x3 noise, to 112x112 and 112x96
+              se_gating also at N=1 and 3, with an all-zero sample, on every
+              cluster size its plans take; the two warps on 250x250x3
+              noise, to 112x112 and 112x96
   4. main     FFRNet.random(seed=0) embed / verify / evaluate in both RecNet
               configurations (fused channel branch; self-similarity kernel),
               plus a BN-folded model; whole-path parity with the CPU
@@ -21,7 +23,9 @@ exits non-zero without a result line:
   6. counts   the launch counts of the main and ingest paths' runs
   7. times    embed faces/s at N=256 (fp32, bf16), ingest faces/s, and each
               kernel's time beside its plain version, its bound and, for
-              the warps, F.affine_grid + F.grid_sample, with CUDA events
+              the warps, F.affine_grid + F.grid_sample, with CUDA events;
+              se_gating's gates stage by stage and in bf16 beside their
+              bounds
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit as nvidia-smi gives them, and the result line
@@ -127,6 +131,30 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters=20, warmup=3, replays=3):
+    """Device milliseconds per call of `fn`, from `replays` timed replays of
+    a CUDA graph of `iters` calls (after `warmup` calls and one replay): the
+    launches' host time, which exceeds a small kernel's own, is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
+
+
 # ---------------------------------------------------------------- phase 1, 2
 
 
@@ -177,7 +205,7 @@ def c4c_weights(model, seed, biases, device):
 
 def phase_kernels(model, dev):
     from ffrnet_torch.ops.kernels.channel_branch import channel_branch, channel_branch_plain
-    from ffrnet_torch.ops.kernels.se_gating import se_gating, se_gating_plain
+    from ffrnet_torch.ops.kernels.se_gating import _se_plan, se_gating, se_gating_plain
     from ffrnet_torch.ops.kernels.self_similarity import (self_similarity_fused,
                                                           self_similarity_fused_plain)
 
@@ -185,17 +213,27 @@ def phase_kernels(model, dev):
     g = gen(10)
     errs = {k: 0.0 for k in KERNELS}
     for dname, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        clusters = set()
         for h, c, _ in SE_STAGES:
-            x = torch.randn(n, c, h, h, generator=g).to(dev, dt)
             w1 = (0.2 * torch.randn(c // 16, c, generator=g)).to(dev, dt)
             w2 = (0.2 * torch.randn(c, c // 16, generator=g)).to(dev, dt)
+            plan = _se_plan(c, h * h, c // 16, dt.itemsize)
+            clusters.add(plan[0])
             tol = TOL.get((dname, "se_gating"), BF16_TOL)
-            e = check_close(f"se_gating {dname} {tuple(x.shape)}", se_gating(x, w1, w2),
-                            se_gating_plain(x, w1, w2), *tol)
-            log("kernels", f"se_gating {dname} x{tuple(x.shape)} max_abs_err {e:.3e} "
-                f"tol atol={tol[0]} rtol={tol[1]} (|x| <= {x.abs().max().item():.1f})")
-            if dname == "fp32":
-                errs["se_gating"] = max(errs["se_gating"], e)
+            for n_se in (1, 3, n):
+                x = torch.randn(n_se, c, h, h, generator=g).to(dev, dt)
+                if n_se > 1:
+                    x[1] = 0  # an all-zero map: its gate is sigmoid(0), finite
+                e = check_close(f"se_gating {dname} {tuple(x.shape)}", se_gating(x, w1, w2),
+                                se_gating_plain(x, w1, w2), *tol)
+                zero = " (sample 1 zero)" if n_se > 1 else ""
+                log("kernels", f"se_gating {dname} x{tuple(x.shape)}{zero} plan (cluster, "
+                    f"channels/CTA, smem) {plan} max_abs_err {e:.3e} tol atol={tol[0]} "
+                    f"rtol={tol[1]} (|x| <= {x.abs().max().item():.1f})")
+                if dname == "fp32":
+                    errs["se_gating"] = max(errs["se_gating"], e)
+        if clusters != {1, 2, 4, 8}:
+            raise AssertionError(f"se_gating {dname}: cluster sizes {sorted(clusters)} checked")
         x = torch.randn(n, 512, 7, 7, generator=g).to(dev, dt)
         x[-1] = 0  # an all-zero map stays finite
         tol = TOL.get((dname, "self_similarity"), BF16_TOL)
@@ -475,16 +513,30 @@ def phase_counts(counts, ingest):
 # ------------------------------------------------------------------ phase 7
 
 
+def roof(nbytes, ops):
+    """(bound_ms, bound_by): the larger of `nbytes` at the HBM rate and
+    `ops` at the fp32 SIMT rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def se_bound(n, itemsize, stages=SE_STAGES):
+    """(bound_ms, bound_by) of the SE gates of `stages` (H, C, gates) at
+    batch n: each map read once and written once, the weights read once;
+    the pool, the two mat-vecs and the scale in fp32."""
+    nbytes = ops = 0
+    for h, c, units in stages:
+        r, hw = c // 16, h * h
+        nbytes += units * (2 * n * c * hw + 2 * c * r) * itemsize
+        ops += units * (2 * n * c * hw + 4 * n * c * r)
+    return roof(nbytes, ops)
+
+
 def bounds(n):
     """(bound_ms, bound_by) per kernel at batch n in fp32, from the bytes
     each must move (inputs read once, outputs written once) and the fp32
     operations it does."""
     b = 4
-    se_bytes = se_ops = 0
-    for h, c, units in SE_STAGES:
-        r, hw = c // 16, h * h
-        se_bytes += units * (2 * n * c * hw * b + 2 * c * r * b)
-        se_ops += units * (2 * n * c * hw + 4 * n * c * r)
     c, hw = 512, 49
     ss_bytes = n * c * hw * b + n * (hw * hw + c * c) * b
     # both Grams are symmetric: a SYRK needs only their upper triangles
@@ -498,14 +550,10 @@ def bounds(n):
     h, w, ch, p_out = 250, 250, 3, 112 * 112
     warp_bytes = (n * h * w * ch + n * 6 + n * p_out * ch) * b
     warp_ops = n * p_out * (20 + 9 * ch)
-    out = {}
-    for k, (by, ops) in {"se_gating": (se_bytes, se_ops), "self_similarity": (ss_bytes, ss_ops),
-                         "channel_branch": (cb_bytes, cb_ops),
-                         "warp_affine_full": (warp_bytes, warp_ops),
-                         "warp_affine_band": (warp_bytes, warp_ops)}.items():
-        t_bytes, t_ops = by / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
-        out[k] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
-    return out
+    return {"se_gating": se_bound(n, b), "self_similarity": roof(ss_bytes, ss_ops),
+            "channel_branch": roof(cb_bytes, cb_ops),
+            "warp_affine_full": roof(warp_bytes, warp_ops),
+            "warp_affine_band": roof(warp_bytes, warp_ops)}
 
 
 def grid_sample_theta(mats, src_hw, out_hw):
@@ -614,6 +662,7 @@ def phase_times(models, dev, card):
         times[k] = (min(k1, k2), min(p1, p2))
         log("times", f"{k} fp32 {what}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} "
             f"ms, bound {bound[k][0]:.4f} ms ({bound[k][1]}) | {card}")
+    se_times(x_se, n, card)
     # the library's bilinear zero-border warp on an NCHW copy made here,
     # outside the timed region; first held against the plain warp
     x_nchw = imgs.permute(0, 3, 1, 2).contiguous()
@@ -632,6 +681,48 @@ def phase_times(models, dev, card):
     log("times", f"library F.affine_grid + F.grid_sample (NCHW) same warp: {lib:.4f} ms "
         f"(max_abs_err {e:.3e} vs the plain warp, tol {LIBRARY_WARP_TOL[0]}) | {card}")
     return times, bound, {k: lib for k in WARPS}
+
+
+def se_times(x_se, n, card):
+    """The SE gates alone at batch n, device time from CUDA graphs (a small
+    gate's launch costs the host more than the card): the 24 gates of a
+    forward and each IR-SE50 stage's gate, in fp32 and in bf16, each beside
+    its bound. bf16 runs in turns with the plan's clusters (four CTAs an SM,
+    fp32's cluster sizes) and with slices twice the bytes (two CTAs an SM,
+    half the CTAs)."""
+    from ffrnet_torch.ops.kernels.se_gating import _launch, _se_plan
+
+    def gates(stages, ctas_per_sm=None):
+        plans = [_se_plan(x.shape[1], x.shape[2] * x.shape[3], w1.shape[0], x.element_size(),
+                          ctas_per_sm) for x, w1, _, _ in stages]
+
+        def run():
+            for (x, w1, w2, units), plan in zip(stages, plans):
+                for _ in range(units):
+                    _launch(x, w1, w2, plan)
+        return run
+
+    def bf16_pair(stages, iters):
+        """(plan, plan, two CTAs/SM, two CTAs/SM) in turns."""
+        plan, two = gates(stages), gates(stages, 2)
+        t1, s1, s2, t2 = (graph_ms(plan, iters), graph_ms(two, iters), graph_ms(two, iters),
+                          graph_ms(plan, iters))
+        return f"{t1:.4f}/{t2:.4f} ms (two CTAs/SM {s1:.4f}/{s2:.4f} ms)", min(t1, t2)
+
+    bf = [(x.bfloat16(), w1.bfloat16(), w2.bfloat16(), units) for x, w1, w2, units in x_se]
+    f32 = graph_ms(gates(x_se), iters=5)
+    b32, b16 = se_bound(n, 4), se_bound(n, 2)
+    text, t16 = bf16_pair(bf, 5)
+    log("times", f"se_gating 24 gates of one IR-SE50 forward, device (graph): fp32 {f32:.4f} ms, "
+        f"bound {b32[0]:.4f} ms ({100 * b32[0] / f32:.0f}%); bf16 {text}, bound {b16[0]:.4f} ms "
+        f"({100 * b16[0] / t16:.0f}%) | {card}")
+    for (h, c, _), one, one_bf in zip(SE_STAGES, x_se, bf):
+        f32 = graph_ms(gates([one[:3] + (1,)]), 20)
+        b32, b16 = se_bound(n, 4, ((h, c, 1),)), se_bound(n, 2, ((h, c, 1),))
+        text, t16 = bf16_pair([one_bf[:3] + (1,)], 20)
+        log("times", f"se_gating one gate ({n},{c},{h},{h}), device (graph): fp32 {f32:.4f} ms, "
+            f"bound {b32[0]:.4f} ms ({100 * b32[0] / f32:.0f}%); bf16 {text}, bound "
+            f"{b16[0]:.4f} ms ({100 * b16[0] / t16:.0f}%) | {card}")
 
 
 # ---------------------------------------------------------------------- main

@@ -29,7 +29,7 @@ RUNS = (("fused", "fp32"), ("fused", "bf16"), ("ss_kernel", "fp32"))
 # complex-fp32 GEMM (xmma_gemm_cf32...), fft2d_c2r; the model has no other
 # complex product
 GROUPS = (
-    ("se_gating", r"se_(pool|gate|scale)_kernel"),
+    ("se_gating", r"se_gate_cluster_kernel"),
     ("self_similarity", r"ss_(space|channel)_kernel"),
     ("channel_branch", r"cb_(prep|rows)_kernel"),
     ("layout (NCHW<->NHWC)", r"nchwToNhwc|nhwcToNchw"),

@@ -13,7 +13,7 @@ import torch
 from ffrnet_torch.ops.align import ARCFACE_REF_PTS, cv2_transform
 from ffrnet_torch.ops.kernels.channel_branch import (_collapse, channel_branch,
                                                      channel_branch_plain)
-from ffrnet_torch.ops.kernels.se_gating import se_gating, se_gating_plain
+from ffrnet_torch.ops.kernels.se_gating import _se_plan, se_gating, se_gating_plain
 from ffrnet_torch.ops.kernels.self_similarity import (
     self_similarity_fused, self_similarity_fused_plain)
 from ffrnet_torch.ops.kernels.warp import (warp_affine_band, warp_affine_band_plain,
@@ -60,12 +60,21 @@ def test_cuda_kernels_match_plain(cuda, dtype):
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(0)
     dt = TDT[dtype]
+    clusters = set()
     for (h, c) in ((56, 64), (28, 128), (14, 256), (7, 512)):
-        x = torch.randn(4, c, h, h, generator=g).to(cuda, dt)
         w1 = (0.2 * torch.randn(c // 16, c, generator=g)).to(cuda, dt)
         w2 = (0.2 * torch.randn(c, c // 16, generator=g)).to(cuda, dt)
-        torch.testing.assert_close(se_gating(x, w1, w2).float(),
-                                   se_gating_plain(x, w1, w2).float(), **TOL[dtype])
+        clusters.add(_se_plan(c, h * h, c // 16, TDT[dtype].itemsize)[0])
+        for n in (1, 3, 4):
+            x = torch.randn(n, c, h, h, generator=g).to(cuda, dt)
+            if n == 3:
+                x[1] = 0  # an all-zero map: its gate is sigmoid(0), finite
+            got = se_gating(x, w1, w2)
+            assert torch.isfinite(got).all()
+            torch.testing.assert_close(got.float(), se_gating_plain(x, w1, w2).float(),
+                                       **TOL[dtype])
+    # clusters of 8, 4, 2 and 1 CTAs
+    assert clusters == {8, 4, 2, 1}
     x = torch.randn(4, 512, 7, 7, generator=g).to(cuda, dt)
     x[3] = 0
     for got, want in zip(self_similarity_fused(x), self_similarity_fused_plain(x)):
