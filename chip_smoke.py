@@ -10,9 +10,10 @@ exits non-zero without a result line:
               each for sm_90a, all at once
   3. kernels  each kernel vs its plain PyTorch version at the main path's
               shapes, N=64, fp32 (TF32 off) and bf16, with the tolerances;
-              se_gating also at N=1 and 3, with an all-zero sample, on every
-              cluster size its plans take; the two warps on 250x250x3
-              noise, to 112x112 and 112x96
+              se_gating and channel_branch also at N=1 and 3, with an
+              all-zero sample (se_gating on every cluster size its plans
+              take, channel_branch also with saturated sigmoids and a batch
+              x8); the two warps on 250x250x3 noise, to 112x112 and 112x96
   4. main     FFRNet.random(seed=0) embed / verify / evaluate in both RecNet
               configurations (fused channel branch; self-similarity kernel),
               plus a BN-folded model; whole-path parity with the CPU
@@ -24,8 +25,9 @@ exits non-zero without a result line:
   7. times    embed faces/s at N=256 (fp32, bf16), ingest faces/s, and each
               kernel's time beside its plain version, its bound and, for
               the warps, F.affine_grid + F.grid_sample, with CUDA events;
-              se_gating's gates stage by stage and in bf16 beside their
-              bounds
+              se_gating's gates stage by stage and in bf16, and
+              channel_branch in fp32 and bf16, from CUDA graphs beside
+              their bounds
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit as nvidia-smi gives them, and the result line
@@ -45,10 +47,12 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 SIMT FLOP/s;
-# every kernel of this slice computes in fp32 whatever its storage type
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, fp32 SIMT FLOP/s
+# and TF32 tensor-core FLOP/s; every kernel computes in fp32 whatever its
+# storage type, channel_branch's two large products as TF32 hi/lo splits
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 KERNELS = {
     "se_gating": ("ffrnet_torch/csrc/se_gating.cu", "ffrnet_tpu/ops/pallas/se_gating.py:55"),
@@ -204,7 +208,6 @@ def c4c_weights(model, seed, biases, device):
 
 
 def phase_kernels(model, dev):
-    from ffrnet_torch.ops.kernels.channel_branch import channel_branch, channel_branch_plain
     from ffrnet_torch.ops.kernels.se_gating import _se_plan, se_gating, se_gating_plain
     from ffrnet_torch.ops.kernels.self_similarity import (self_similarity_fused,
                                                           self_similarity_fused_plain)
@@ -244,20 +247,51 @@ def phase_kernels(model, dev):
                 f"sample) max_abs_err {e:.3e} tol atol={tol[0]} rtol={tol[1]}")
             if dname == "fp32":
                 errs["self_similarity"] = max(errs["self_similarity"], e)
-        flat = torch.randn(n, 512, 49, generator=g).to(dev, dt)
-        tol = TOL.get((dname, "channel_branch"), BF16_TOL)
-        for biases in (True, False):
-            w = c4c_weights(model, 11, biases, dev)
-            want = channel_branch_plain(flat, w)
-            e = check_close(f"channel_branch {dname} biases={biases}",
-                            channel_branch(flat, w), want, *tol)
-            log("kernels", f"channel_branch {dname} x{tuple(flat.shape)} biases={biases} "
-                f"max_abs_err {e:.3e} tol atol={tol[0]} rtol={tol[1]} "
-                f"(|out| <= {want.abs().max().item():.1f})")
-            if dname == "fp32":
-                errs["channel_branch"] = max(errs["channel_branch"], e)
+        e = check_channel_branch(model, dev, dname, dt, g, n)
+        if dname == "fp32":
+            errs["channel_branch"] = e
     torch.cuda.synchronize()
     return errs
+
+
+def check_channel_branch(model, dev, dname, dt, g, n):
+    """channel_branch vs its twin at (N, 512, 49), with and without biases:
+    N = 1, 3 (sample 1 zero: out is 0 there) and n; saturated sigmoids (W5
+    and b5 x8, which puts many logits far past the sigmoid's knee); a batch
+    x8, whose fp32 atol grows with it (the fp32 twin alone is about 1e-4
+    off an fp64 evaluation there, tests/test_torch_cb_split.py). Returns
+    the largest fp32 error of the unscaled cases."""
+    from ffrnet_torch.ops.kernels.channel_branch import channel_branch, channel_branch_plain
+
+    worst = 0.0
+    for biases in (True, False):
+        w = c4c_weights(model, 11, biases, dev)
+        cases = []
+        for n_cb in (1, 3, n):
+            x = torch.randn(n_cb, 512, 49, generator=g)
+            if n_cb == 3:
+                x[1] = 0
+            cases.append((f"x{tuple(x.shape)}{' (sample 1 zero)' if n_cb == 3 else ''}",
+                          x.to(dev, dt), w, 1))
+        x = torch.randn(n, 512, 49, generator=g).to(dev, dt)
+        saturated = w[:10] + (8 * w[10], 8 * w[11])
+        cases.append((f"x{tuple(x.shape)} W5, b5 x8 (saturated)", x, saturated, 1))
+        cases.append((f"x{tuple(x.shape)} x8", 8 * x, w, 8))
+        for what, x, wt, scale in cases:
+            tol = TOL.get((dname, "channel_branch"), BF16_TOL)
+            if dname == "fp32":
+                tol = (tol[0] * scale, tol[1])
+            want = channel_branch_plain(x, wt)
+            got = channel_branch(x, wt)
+            e = check_close(f"channel_branch {dname} {what} biases={biases}", got, want, *tol)
+            zero = (x == 0).flatten(1).all(1)
+            if not (got[zero] == 0).all():
+                raise AssertionError(f"channel_branch {dname} {what}: a zero sample is not 0")
+            log("kernels", f"channel_branch {dname} {what} biases={biases} max_abs_err {e:.3e} "
+                f"tol atol={tol[0]:g} rtol={tol[1]} (|out| <= {want.abs().max().item():.1f})")
+            if scale == 1:
+                worst = max(worst, e)
+    return worst
 
 
 def face_landmarks(n, seed):
@@ -532,18 +566,33 @@ def se_bound(n, itemsize, stages=SE_STAGES):
     return roof(nbytes, ops)
 
 
+def cb_bound(n, itemsize=4, c=512, hw=49):
+    """(bound_ms, bound_by) of channel_branch at batch n: the largest of
+    its two products h W5^T and M X on the tensor cores as 3xTF32 (M X as
+    2xTF32 in bf16, whose X is exact in TF32), the rest (t, h, the two
+    affines) on fp32 SIMT, and the bytes (x read once, out written once,
+    fp32 weights read once)."""
+    logits, values = 2 * n * c * c * 32, 2 * n * c * c * hw
+    passes = 3 if itemsize == 4 else 2
+    t_tc = (3 * logits + passes * values) / TF32_FLOP_PER_S * 1e3
+    rest = n * (2 * 32 * c * hw + 4 * c * 32 * hw + 4 * c * 32 * 32)
+    t_ops = rest / FP32_FLOP_PER_S * 1e3
+    nbytes = (2 * n * c * hw * itemsize
+              + (32 * (hw + c) + 2 * 32 * 32 + c * 32 + 3 * c + 4 * 32 + c) * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by = f"tensor cores ({'3xTF32' if itemsize == 4 else '3xTF32, M X 2xTF32'})"
+    return max((t_tc, by), (t_ops, "operations"), (t_bytes, "bytes"))
+
+
 def bounds(n):
     """(bound_ms, bound_by) per kernel at batch n in fp32, from the bytes
     each must move (inputs read once, outputs written once) and the fp32
-    operations it does."""
+    operations it does (channel_branch: `cb_bound`)."""
     b = 4
     c, hw = 512, 49
     ss_bytes = n * c * hw * b + n * (hw * hw + c * c) * b
     # both Grams are symmetric: a SYRK needs only their upper triangles
     ss_ops = 2 * n * (hw * (hw + 1) // 2 * c + c * (c + 1) // 2 * hw) + 2 * n * c * hw
-    cb_bytes = 2 * n * c * hw * b + (32 * (hw + c) + 2 * 32 * 32 + c * 32 + 3 * c + 4 * 32 + c) * b
-    cb_ops = n * (2 * 32 * c * hw + 4 * c * 32 * hw + 4 * c * 32 * 32 + 2 * c * c * 32
-                  + 2 * c * c * hw)
     # the warps, (n, 250, 250, 3) -> (n, 112, 112, 3) with (n, 2, 3)
     # matrices: per output pixel 8 operations for its coordinates, 12 for
     # its four tent weights, 9 per channel for the 2x2 taps
@@ -551,7 +600,7 @@ def bounds(n):
     warp_bytes = (n * h * w * ch + n * 6 + n * p_out * ch) * b
     warp_ops = n * p_out * (20 + 9 * ch)
     return {"se_gating": se_bound(n, b), "self_similarity": roof(ss_bytes, ss_ops),
-            "channel_branch": roof(cb_bytes, cb_ops),
+            "channel_branch": cb_bound(n),
             "warp_affine_full": roof(warp_bytes, warp_ops),
             "warp_affine_band": roof(warp_bytes, warp_ops)}
 
@@ -663,6 +712,7 @@ def phase_times(models, dev, card):
         log("times", f"{k} fp32 {what}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} "
             f"ms, bound {bound[k][0]:.4f} ms ({bound[k][1]}) | {card}")
     se_times(x_se, n, card)
+    cb_times(flat, w_cb, n, card)
     # the library's bilinear zero-border warp on an NCHW copy made here,
     # outside the timed region; first held against the plain warp
     x_nchw = imgs.permute(0, 3, 1, 2).contiguous()
@@ -681,6 +731,25 @@ def phase_times(models, dev, card):
     log("times", f"library F.affine_grid + F.grid_sample (NCHW) same warp: {lib:.4f} ms "
         f"(max_abs_err {e:.3e} vs the plain warp, tol {LIBRARY_WARP_TOL[0]}) | {card}")
     return times, bound, {k: lib for k in WARPS}
+
+
+def cb_times(flat, w_cb, n, card):
+    """channel_branch alone at (n, 512, 49), device time from CUDA graphs,
+    in fp32 and in bf16 (fp32, bf16, bf16, fp32), each beside its bound."""
+    from ffrnet_torch.ops.kernels.channel_branch import channel_branch
+
+    flat_bf = flat.bfloat16()
+    f1, b1, b2, f2 = (graph_ms(lambda: channel_branch(flat, w_cb)),
+                      graph_ms(lambda: channel_branch(flat_bf, w_cb)),
+                      graph_ms(lambda: channel_branch(flat_bf, w_cb)),
+                      graph_ms(lambda: channel_branch(flat, w_cb)))
+    (f32, by32), (b16, by16) = cb_bound(n, 4), cb_bound(n, 2)
+    simt = roof(0, n * (2 * 32 * 512 * 49 + 4 * 512 * 32 * 49 + 4 * 512 * 32 * 32
+                        + 2 * 512 * 512 * (32 + 49)))[0]
+    log("times", f"channel_branch ({n},512,49), device (graph): fp32 {f1:.4f}/{f2:.4f} ms, bound "
+        f"{f32:.4f} ms ({by32}; {100 * f32 / min(f1, f2):.0f}%), every operation on fp32 SIMT "
+        f"{simt:.4f} ms; bf16 {b1:.4f}/{b2:.4f} ms, bound {b16:.4f} ms ({by16}; "
+        f"{100 * b16 / min(b1, b2):.0f}%) | {card}")
 
 
 def se_times(x_se, n, card):

@@ -1,6 +1,7 @@
 // RecNet's whole channel-attention branch at inference, fp32 or bf16 in and
-// out, fp32 inside. The (C, C) attention matrix M never reaches device
-// memory.
+// out, fp32 inside: one thread-block-cluster launch, with the two large
+// products on the tensor cores as 3xTF32. The (C, C) attention matrix M
+// never leaves registers.
 //
 // Replaces ffrnet_tpu/ops/pallas/channel_branch.py::channel_branch_pallas.
 // From one sample's channel-major map X (C, HW):
@@ -14,257 +15,534 @@
 // prepared in fp32 by the wrapper (`_collapse`). The output is (N, C, HW),
 // which is NCHW; the JAX kernel returns its transpose (N, HW, C).
 //
-// Bound on the H100: operations. At C=512, HW=49 a sample is about 49 MFLOP
-// (M: 16.8, M X: 25.7, the rest 6.6) against 200 KB of I/O in fp32: at
-// N=256, 12.6 GFLOP is 0.19 ms at 67 TFLOP/s fp32 SIMT, while the bytes
-// take 0.015 ms. M in device memory would add 1 MB written and read per
-// sample.
+// Bound on the H100 at C=512, HW=49, N=256: the two products h W5^T and
+// M X are 10.87 GFLOP; the fp32 parity bar needs each as three TF32
+// products (below), 0.066 ms at 495 TFLOP/s. The rest (t, h, the affines,
+// 1.77 GFLOP) takes 0.026 ms at the fp32 SIMT rate of 67 TFLOP/s and the
+// bytes (51 MB) 0.015 ms. All 12.6 GFLOP on fp32 SIMT, as the kernel this
+// one replaces computed them, would take 0.189 ms. In bf16, X is exact in
+// TF32 and M X needs two products: 0.053 ms. The 67 M sigmoids per call
+// (expf on the special-function units) are not counted.
 //
-// Design: t is the only reduction over all C rows, so a first launch
-// (one block per sample) computes t and the rows' inverse norms. After it,
-// every block of BM rows of M is independent: the second launch (grid
-// C/BM x N) builds its rows of h in shared memory, then walks M's columns
-// in chunks of BD: it forms the BM x BD tile of M in shared memory, and
-// at once folds it into out += M_tile X[chunk] held in registers.
+// Why the split: one TF32 pass (10-bit mantissa) for both products puts
+// the output 1.5e-2 off the fp32 plain version on the test weights, 100x
+// the bound of 1e-4; with x = hi + lo (both TF32) and the products
+// lo*hi + hi*lo + hi*hi it is 3-4e-5 off (emulated on the CPU,
+// tests/test_torch_cb_split.py).
+//
+// Design: the branch is a sigmoid attention per sample, with h as the
+// queries, W5 as the keys (bias b5), X as the values, and no softmax.
+//   1. A cluster of K CTAs (K = 8 at C=512) takes one sample; each CTA owns
+//      C/K rows of M (64 at C=512). t is the only reduction over all C
+//      rows: each CTA sums its rows' share of t, and every CTA adds the K
+//      partials in rank order through distributed shared memory, so all
+//      get the same bits. No scratch in device memory, one launch.
+//   2. Each CTA builds h for 64 of its rows on fp32 SIMT (4 x 4 tiles a
+//      thread, float4 operands from shared memory).
+//      Each of its 4 warps then holds 16 rows of h as TF32 hi/lo A
+//      fragments of mma.sync m16n8k8 for the rest of the block.
+//   3. The warp walks the C keys in chunks of 64, double-buffered in shared
+//      memory by cp.async (W5 rows and X rows of the chunk): S = h W5^T
+//      (3xTF32), + b5 and the sigmoid in the accumulator registers, P split
+//      into hi/lo, and O += P X (3xTF32 in fp32, 2 products in bf16) into a
+//      16 x 56 accumulator of 28 registers a thread, stored once. Each
+//      k-step's products are summed in a fresh accumulator and added to O
+//      in fp32: the tensor cores' sums round toward zero, and carried in O
+//      over all 192 steps they put the output 2-3e-4 off the plain version
+//      on the H100.
+//   The accumulator of m16n8k8 holds (row g, columns 2t, 2t+1) in a thread
+//   where the A operand wants (row g, columns t, t+4). Instead of moving P
+//   between threads, the key order inside each k-step of P X is permuted
+//   (`Keys`): A's column t is the key of S's column 2t and A's column t+4
+//   that of S's column 2t+1, and X's B fragment reads the same two keys.
+//   The permutation also picks which keys share a k-step, so that the B
+//   fragments of X's unpadded rows (HW=49) meet no bank conflict; W5's rows
+//   are stored in that order when they are copied in.
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using ffr::from_f;
 using ffr::to_f;
 
+constexpr int kThreads = 128;    // 4 warps, 16 rows of M each
 constexpr int K1 = 32;           // Conv4Channel bottleneck width
-constexpr int HWMAX = 56;        // largest HW the kernels take
-constexpr int HWP = HWMAX + 1;   // padded row (odd: no bank conflicts)
-constexpr int BM = 64;           // rows of M per block
-constexpr int BD = 64;           // columns of M per chunk
-constexpr int QPT = HWMAX / 4;   // output columns per thread (4 threads per row)
+constexpr int HWMAX = 56;        // largest HW the kernel takes: 7 n-tiles of 8
+constexpr int NT = HWMAX / 8;
+constexpr int BM = 64;           // rows of M per block of a CTA
+constexpr int BD = 64;           // keys per chunk
+constexpr int W5S = K1 + 4;      // W5 chunk row stride: B fragments free of conflicts
+constexpr int XS = HWMAX + 4;    // ghat row stride (float4 rows)
+constexpr int XT = BM + 4;       // x^T row stride (float4 rows)
+constexpr int HT = BM + 8;       // h^T row stride: its A fragments free of conflicts
+constexpr int kMaxCluster = 8;
+constexpr int kVecT = (K1 * HWMAX / 4 + kThreads - 1) / kThreads;  // float4s of t a thread sums
+
+// Shared memory: t (the partials, then the sum), then one of three stages.
+// The SIMT stages give each thread a 4 x 4 tile of their output and read
+// float4 rows, so a float4 of each operand feeds 16 FMAs.
+struct StageT {  // partial t of a block of rows
+  float xs[BM][XS];       // ghat rows
+  float ws[BM][K1 + 4];   // W1s[:, rows]^T
+};
+struct StageH {  // h of a block of rows
+  float xt[HWMAX][XT];    // x^T
+  float w1ft[HWMAX][K1];  // W1f^T
+  float wct[K1][K1 + 4];  // the layer's Wc^T
+  float ht[K1][HT];       // h^T
+  float inv[BM];
+};
+struct StageB {  // the attention loop: two buffers of X rows and W5 rows
+  float x[2][BD * HWMAX];  // flat rows of the chunk, as T (bf16 fills half)
+  float w5[2][BD * W5S];   // W5 rows in the order of `Keys`
+};
+union Stages {
+  StageT t;
+  StageH h;
+  StageB b;
+};
+struct Smem {
+  float t[K1 * HWMAX];  // partials as (32, HW), then t^T as (HW, 32)
+  Stages u;
+};
+constexpr int kSmemBytes = (int)sizeof(Smem);
+static_assert(4 * (kSmemBytes + 1024) <= 228 * 1024, "four CTAs an SM");
 
 struct CbWeights {
-  const float *w1f, *b1, *s0, *wc1, *bc1, *s1, *wc2, *bc2, *s2, *w5, *b5;
+  const float *w1f, *w1s, *b1, *s0, *wc1, *bc1, *s1, *wc2, *bc2, *s2, *w5, *b5;
 };
 
-// t = W1s ghat and inv_r, one block per sample.
+// Key order inside a chunk of BD = 64 keys. S's n-tile kk (8 keys), column
+// n = 2m + b, holds key kk + A*m + B*b; P X's k-step kk then reads the keys
+// of S's columns 2t and 2t+1 in its slots t and t+4. X's rows of the two
+// keys of a thread's B fragment sit A rows apart: with HW=49, A*49 is 8
+// (fp32) or 16 (bf16) banks mod 32, so the 32 lanes (t: 0..3, g: 0..7)
+// read 32 different banks.
 template <typename T>
-__global__ void __launch_bounds__(256)
-cb_prep_kernel(const T* __restrict__ x, const float* __restrict__ w1s,
-               float* __restrict__ inv_r, float* __restrict__ t, int c, int hw) {
-  __shared__ float Xs[BM][HWP];     // ghat rows c0..c0+BM-1
-  __shared__ float Ws[K1][BM + 1];  // W1s[:, c0:c0+BM]
-  const int n = blockIdx.x, tid = threadIdx.x;
-  const T* xn = x + (size_t)n * c * hw;
-  const int nout = K1 * hw;
-  int ok[8], qk[8];
-  float acc[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int o = tid + 256 * k;
-    const int oc = o < nout ? o : 0;
-    ok[k] = oc / hw;
-    qk[k] = oc - ok[k] * hw;
-    acc[k] = 0.f;
+struct Keys {
+  static constexpr int A = sizeof(T) == 4 ? 8 : 16;
+  static constexpr int B = sizeof(T) == 4 ? 32 : 8;
+  __device__ static int key(int kk, int n) { return kk + A * (n >> 1) + B * (n & 1); }
+  // the position kk*8 + n of key j in the chunk's W5 rows
+  __device__ static int slot(int j) {
+    const int kk = j & 7;
+    const int m = sizeof(T) == 4 ? (j >> 3) & 3 : j >> 4;
+    const int b = sizeof(T) == 4 ? j >> 5 : (j >> 3) & 1;
+    return kk * 8 + 2 * m + b;
   }
-  for (int c0 = 0; c0 < c; c0 += BM) {
-    for (int e = tid; e < BM * hw; e += 256) {
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// x rounded to TF32: to nearest, ties away from zero, as cvt.rna.tf32.f32
+// does for finite x, in two integer operations (the cvt runs at a fraction
+// of their rate)
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+// x = hi + lo, both TF32; x - hi is exact in fp32
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// d = a b + c, m16n8k8, TF32 in, fp32 accumulate. The tensor cores round
+// each step's sum toward zero after aligning it to its largest term, so
+// one accumulator carried over many steps drifts toward zero by about an
+// ulp of itself a step; the callers sum a few steps in a fresh accumulator
+// and add that into their total in fp32.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2],
+                                    const float (&c)[4]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(c[0]), "f"(c[1]),
+        "f"(c[2]), "f"(c[3]));
+}
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  mma(d, a, b, d);
+}
+
+// An X value of a B fragment as TF32 hi/lo: a bf16 value is exact in TF32
+// (lo = 0); 0 for a column at or past HW
+__device__ __forceinline__ void x_frag(const float* xs, int i, bool ok, uint32_t& hi,
+                                       uint32_t& lo) {
+  split(ok ? xs[i] : 0.f, hi, lo);
+}
+__device__ __forceinline__ void x_frag(const __nv_bfloat16* xs, int i, bool ok, uint32_t& hi,
+                                       uint32_t& lo) {
+  hi = ok ? (uint32_t)__bfloat16_as_ushort(xs[i]) << 16 : 0u;
+  lo = 0u;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 4)
+cb_sigmoid_attention_kernel(const T* __restrict__ x, CbWeights w, T* __restrict__ out, int c,
+                            int hw) {
+  extern __shared__ __align__(16) float smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int k_cta = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int rows = c / k_cta;  // this CTA's rows of M, in blocks of BM
+  const int r_lo = rank * rows;
+  const T* xn = x + (size_t)(blockIdx.x / k_cta) * c * hw;
+  T* on = out + (size_t)(blockIdx.x / k_cta) * c * hw;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  const int tj = tid & 7, ti = tid >> 3;  // SIMT tiles: 4 columns from 4tj, 4 rows from 4ti
+
+  // ---- 1. this CTA's partial t = W1s[:, rows] ghat[rows] (t row 4tj+a,
+  // column 4ti+b in a thread), then the sum over the cluster
+  float tacc[4][4] = {};
+  for (int r0 = r_lo; r0 < r_lo + rows; r0 += BM) {
+    StageT& st = sm.u.t;
+    for (int e = tid; e < BM * hw; e += kThreads) {
       const int i = e / hw, q = e - i * hw;
-      Xs[i][q] = to_f(xn[(size_t)c0 * hw + e]);
+      st.xs[i][q] = to_f(xn[(size_t)r0 * hw + e]);
     }
-    for (int e = tid; e < K1 * BM; e += 256) {
+    for (int e = tid; e < K1 * BM; e += kThreads) {
       const int o = e / BM, i = e - o * BM;
-      Ws[o][i] = w1s[(size_t)o * c + c0 + i];
+      st.ws[i][o] = w.w1s[(size_t)o * c + r0 + i];
     }
     __syncthreads();
     if (tid < BM) {
       float s = 0.f;
-      for (int q = 0; q < hw; ++q) s += Xs[tid][q] * Xs[tid][q];
+      for (int q = 0; q < hw; ++q) s += st.xs[tid][q] * st.xs[tid][q];
       const float inv = ffr::inv_norm(s);
-      inv_r[(size_t)n * c + c0 + tid] = inv;
-      for (int q = 0; q < hw; ++q) Xs[tid][q] *= inv;
+      for (int q = 0; q < hw; ++q) st.xs[tid][q] *= inv;
     }
     __syncthreads();
-    for (int i = 0; i < BM; ++i) {
+    if (4 * ti < hw) {  // columns past HW are never stored
+      for (int i = 0; i < BM; ++i) {
+        const float4 wv = *reinterpret_cast<const float4*>(&st.ws[i][4 * tj]);
+        const float4 xv = *reinterpret_cast<const float4*>(&st.xs[i][4 * ti]);
+        const float wa[4] = {wv.x, wv.y, wv.z, wv.w}, xb[4] = {xv.x, xv.y, xv.z, xv.w};
 #pragma unroll
-      for (int k = 0; k < 8; ++k) acc[k] += Ws[ok[k]][i] * Xs[i][qk[k]];
-    }
-    __syncthreads();
-  }
+        for (int a = 0; a < 4; ++a)
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int o = tid + 256 * k;
-    if (o < nout) t[(size_t)n * nout + o] = acc[k];
-  }
-}
-
-struct StageA {  // building h
-  float Xr[BM][HWP];
-  float Ts[K1][HWP];
-  float W1f[K1][HWP];
-  float Wc[K1][K1 + 1];
-  float inv[BM];
-};
-struct StageB {  // M tiles and out
-  float W5[BD][K1 + 1];
-  float Xd[BD][HWP];
-  float Ms[BM][BD + 1];
-  float b5[BD];
-};
-union Stages {
-  StageA a;
-  StageB b;
-};
-static_assert(sizeof(Stages) + sizeof(float) * BM * (K1 + 1) <= 48 * 1024,
-              "static shared memory above 48 KB");
-
-template <typename T>
-__global__ void __launch_bounds__(256)
-cb_rows_kernel(const T* __restrict__ x, const float* __restrict__ inv_r,
-               const float* __restrict__ t, CbWeights w, T* __restrict__ out, int c, int hw) {
-  __shared__ float Hs[BM][K1 + 1];
-  __shared__ Stages u;
-  const int n = blockIdx.y, c0 = blockIdx.x * BM, tid = threadIdx.x;
-  const T* xn = x + (size_t)n * c * hw;
-
-  // ---- h for rows c0..c0+BM-1: BM*K1 = 2048 values, 8 per thread
-  for (int e = tid; e < BM * hw; e += 256) {
-    const int i = e / hw, q = e - i * hw;
-    u.a.Xr[i][q] = to_f(xn[(size_t)c0 * hw + e]);
-  }
-  for (int e = tid; e < K1 * hw; e += 256) {
-    const int o = e / hw, q = e - o * hw;
-    u.a.Ts[o][q] = t[(size_t)n * K1 * hw + e];
-    u.a.W1f[o][q] = w.w1f[e];
-  }
-  if (tid < BM) u.a.inv[tid] = inv_r[(size_t)n * c + c0 + tid];
-  __syncthreads();
-  float hv[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int o = tid + 256 * k, i = o >> 5, j = o & 31;
-    const float inv = u.a.inv[i];
-    float a1 = 0.f, a2 = 0.f;
-    for (int q = 0; q < hw; ++q) {
-      const float xv = u.a.Xr[i][q];
-      a1 += xv * u.a.W1f[j][q];
-      a2 += (xv * inv) * u.a.Ts[j][q];
-    }
-    const float h = a1 + a2 + w.b1[j];
-    hv[k] = h >= 0.f ? h : w.s0[c0 + i] * h;
-  }
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int o = tid + 256 * k;
-    Hs[o >> 5][o & 31] = hv[k];
-  }
-  for (int layer = 0; layer < 2; ++layer) {
-    const float* wc = layer ? w.wc2 : w.wc1;
-    const float* bc = layer ? w.bc2 : w.bc1;
-    const float* sl = layer ? w.s2 : w.s1;
-    __syncthreads();  // Hs written; the previous layer's Wc reads are done
-    for (int e = tid; e < K1 * K1; e += 256) u.a.Wc[e / K1][e % K1] = wc[e];
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int o = tid + 256 * k, i = o >> 5, j = o & 31;
-      float s = 0.f;
-#pragma unroll 8
-      for (int m = 0; m < K1; ++m) s += Hs[i][m] * u.a.Wc[j][m];
-      s += bc[j];
-      hv[k] = s >= 0.f ? s : sl[c0 + i] * s;
-    }
-    __syncthreads();  // every read of Hs is done
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int o = tid + 256 * k;
-      Hs[o >> 5][o & 31] = hv[k];
-    }
-  }
-  __syncthreads();  // h is final; stage A's shared memory is free
-
-  // ---- M tiles (BM x BD) and out = M X, out kept in registers
-  const int ty = tid >> 4, tx = tid & 15;  // M tile: rows ty*4+r, cols tx+16*s
-  const int ri = tid >> 2, qo = tid & 3;   // out: row ri, cols qo+4*k
-  float oacc[QPT];
-#pragma unroll
-  for (int k = 0; k < QPT; ++k) oacc[k] = 0.f;
-  for (int d0 = 0; d0 < c; d0 += BD) {
-    for (int e = tid; e < BD * K1; e += 256) u.b.W5[e / K1][e % K1] = w.w5[(size_t)d0 * K1 + e];
-    if (tid < BD) u.b.b5[tid] = w.b5[d0 + tid];
-    for (int e = tid; e < BD * hw; e += 256) {
-      const int jj = e / hw, q = e - jj * hw;
-      u.b.Xd[jj][q] = to_f(xn[(size_t)d0 * hw + e]);
-    }
-    __syncthreads();
-    float m[4][4] = {};
-#pragma unroll 4
-    for (int kk = 0; kk < K1; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = Hs[ty * 4 + r][kk];
-#pragma unroll
-      for (int s = 0; s < 4; ++s) b[s] = u.b.W5[tx + 16 * s][kk];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int s = 0; s < 4; ++s) m[r][s] += a[r] * b[s];
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int s = 0; s < 4; ++s)
-        u.b.Ms[ty * 4 + r][tx + 16 * s] = ffr::sigmoid(m[r][s] + u.b.b5[tx + 16 * s]);
-    __syncthreads();
-    for (int jj = 0; jj < BD; ++jj) {
-      const float mv = u.b.Ms[ri][jj];
-#pragma unroll
-      for (int k = 0; k < QPT; ++k) {
-        const int q = qo + 4 * k;
-        if (q < hw) oacc[k] += mv * u.b.Xd[jj][q];
+          for (int b = 0; b < 4; ++b) tacc[a][b] += wa[a] * xb[b];
       }
     }
-    __syncthreads();  // before the next chunk overwrites W5, Xd, Ms
+    __syncthreads();  // before the next block or stage overwrites the union
   }
-  T* dst = out + ((size_t)n * c + c0 + ri) * hw;
 #pragma unroll
-  for (int k = 0; k < QPT; ++k) {
-    const int q = qo + 4 * k;
-    if (q < hw) dst[q] = from_f<T>(oacc[k]);
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (4 * ti + b < hw) sm.t[(4 * tj + a) * hw + 4 * ti + b] = tacc[a][b];
+  cluster.sync();  // every partial written
+  // every CTA adds the K partials in rank order, float4 by float4: the
+  // loads from all peers are independent and in flight together
+  const int nout = K1 * hw, nvec = nout / 4;
+  float4 tsum[kVecT];
+#pragma unroll
+  for (int k = 0; k < kVecT; ++k) tsum[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r) {
+    if (r < k_cta) {
+      const float4* peer = reinterpret_cast<const float4*>(cluster.map_shared_rank(sm.t, r));
+#pragma unroll
+      for (int k = 0; k < kVecT; ++k) {
+        const int v = tid + kThreads * k;
+        if (v < nvec) {
+          const float4 p = peer[v];
+          tsum[k].x += p.x;
+          tsum[k].y += p.y;
+          tsum[k].z += p.z;
+          tsum[k].w += p.w;
+        }
+      }
+    }
+  }
+  cluster.sync();  // every peer has read this CTA's partials
+#pragma unroll
+  for (int k = 0; k < kVecT; ++k) {
+    const int v = tid + kThreads * k;
+    if (v < nvec) {
+      const float vals[4] = {tsum[k].x, tsum[k].y, tsum[k].z, tsum[k].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int o = 4 * v + e, j = o / hw, q = o - j * hw;
+        sm.t[q * K1 + j] = vals[e];  // t^T
+      }
+    }
+  }
+
+  const int g = lane >> 2, tq = lane & 3;  // fragment row group, thread in group
+  for (int r0 = r_lo; r0 < r_lo + rows; r0 += BM) {
+    // ---- 2. h for rows r0..r0+BM-1 on SIMT (row 4ti+r, column 4tj+cc in
+    // a thread), kept as h^T
+    StageH& sh = sm.u.h;
+    for (int e = tid; e < BM * hw; e += kThreads) {
+      const int i = e / hw, q = e - i * hw;
+      sh.xt[q][i] = to_f(xn[(size_t)r0 * hw + e]);
+    }
+    for (int e = tid; e < nout; e += kThreads) {
+      const int q = e / K1, j = e - q * K1;
+      sh.w1ft[q][j] = w.w1f[j * hw + q];
+    }
+    __syncthreads();
+    if (tid < BM) {
+      float s = 0.f;
+      for (int q = 0; q < hw; ++q) s += sh.xt[q][tid] * sh.xt[q][tid];
+      sh.inv[tid] = ffr::inv_norm(s);
+    }
+    __syncthreads();
+    float hv[4][4];
+    {
+      // x W1f^T and x t^T; ghat t^T = inv * (x t^T) per row
+      float a1[4][4] = {}, a2[4][4] = {};
+      for (int q = 0; q < hw; ++q) {
+        const float4 xv = *reinterpret_cast<const float4*>(&sh.xt[q][4 * ti]);
+        const float4 wv = *reinterpret_cast<const float4*>(&sh.w1ft[q][4 * tj]);
+        const float4 tv = *reinterpret_cast<const float4*>(&sm.t[q * K1 + 4 * tj]);
+        const float xr[4] = {xv.x, xv.y, xv.z, xv.w}, wc[4] = {wv.x, wv.y, wv.z, wv.w},
+                    tc[4] = {tv.x, tv.y, tv.z, tv.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) {
+            a1[r][cc] += xr[r] * wc[cc];
+            a2[r][cc] += xr[r] * tc[cc];
+          }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float inv = sh.inv[4 * ti + r], slope = w.s0[r0 + 4 * ti + r];
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const float h = a1[r][cc] + inv * a2[r][cc] + w.b1[4 * tj + cc];
+          hv[r][cc] = h >= 0.f ? h : slope * h;
+        }
+      }
+    }
+    for (int layer = 0; layer < 2; ++layer) {
+      const float* wc = layer ? w.wc2 : w.wc1;
+      const float* bc = layer ? w.bc2 : w.bc1;
+      const float* sl = layer ? w.s2 : w.s1;
+      if (layer) __syncthreads();  // every read of ht is done
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc)
+        *reinterpret_cast<float4*>(&sh.ht[4 * tj + cc][4 * ti]) =
+            make_float4(hv[0][cc], hv[1][cc], hv[2][cc], hv[3][cc]);
+      for (int e = tid; e < K1 * K1; e += kThreads) {
+        const int m = e / K1, j = e - m * K1;
+        sh.wct[m][j] = wc[j * K1 + m];
+      }
+      __syncthreads();
+      float acc[4][4] = {};
+#pragma unroll 8
+      for (int m = 0; m < K1; ++m) {
+        const float4 hq = *reinterpret_cast<const float4*>(&sh.ht[m][4 * ti]);
+        const float4 wq = *reinterpret_cast<const float4*>(&sh.wct[m][4 * tj]);
+        const float hr[4] = {hq.x, hq.y, hq.z, hq.w}, wcol[4] = {wq.x, wq.y, wq.z, wq.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) acc[r][cc] += hr[r] * wcol[cc];
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float slope = sl[r0 + 4 * ti + r];
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const float h = acc[r][cc] + bc[4 * tj + cc];
+          hv[r][cc] = h >= 0.f ? h : slope * h;
+        }
+      }
+    }
+    __syncthreads();  // every read of ht is done
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc)
+      *reinterpret_cast<float4*>(&sh.ht[4 * tj + cc][4 * ti]) =
+          make_float4(hv[0][cc], hv[1][cc], hv[2][cc], hv[3][cc]);
+    __syncthreads();  // h is final
+
+    // this warp's 16 rows of h as A fragments, TF32 hi/lo, K = 32: 4 k-steps
+    uint32_t ah[4][4], al[4][4];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const float* c0 = &sh.ht[8 * ks + tq][16 * warp + g];
+      const float* c4 = &sh.ht[8 * ks + tq + 4][16 * warp + g];
+      split(c0[0], ah[ks][0], al[ks][0]);
+      split(c0[8], ah[ks][1], al[ks][1]);
+      split(c4[0], ah[ks][2], al[ks][2]);
+      split(c4[8], ah[ks][3], al[ks][3]);
+    }
+    __syncthreads();  // stage H is free for the chunk buffers
+
+    // ---- 3. the keys in chunks of BD: S, sigmoid, O += P X
+    StageB& sb = sm.u.b;
+    const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+    auto issue = [&](int d0, int buf) {
+      const char* src = reinterpret_cast<const char*>(xn + (size_t)d0 * hw);
+      char* dst = reinterpret_cast<char*>(sb.x[buf]);
+      const int xvec = BD * hw * (int)sizeof(T) / 16;
+      for (int v = tid; v < xvec; v += kThreads) cp_async16(dst + 16 * v, src + 16 * v);
+      for (int v = tid; v < BD * K1 / 4; v += kThreads) {
+        const int j = v >> 3, part = v & 7;  // key j, 16-byte part of its row
+        cp_async16(&sb.w5[buf][Keys<T>::slot(j) * W5S + 4 * part],
+                   w.w5 + (size_t)(d0 + j) * K1 + 4 * part);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+    float o[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+    const int nch = c / BD;
+    issue(0, 0);
+    for (int ch = 0; ch < nch; ++ch) {
+      const int buf = ch & 1, d0 = ch * BD;
+      if (ch + 1 < nch) {
+        issue(d0 + BD, buf ^ 1);
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      }
+      __syncthreads();  // chunk ch has landed for every thread
+      const T* xs = reinterpret_cast<const T*>(sb.x[buf]);
+      const float* w5s = sb.w5[buf];
+#pragma unroll 1
+      for (int kk = 0; kk < BD / 8; ++kk) {
+        // S for keys Keys::key(kk, 0..7) of this warp's 16 rows: the two
+        // cross terms and hi*hi in three chains of four k-steps
+        float s[4], c1[4], c2[4];
+        const float* wrow = w5s + (kk * 8 + g) * W5S + tq;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          uint32_t bh[2], bl[2];
+          split(wrow[8 * ks], bh[0], bl[0]);
+          split(wrow[8 * ks + 4], bh[1], bl[1]);
+          if (ks == 0) {
+            mma(c1, al[0], bh, zero);
+            mma(c2, ah[0], bl, zero);
+            mma(s, ah[0], bh, zero);
+          } else {
+            mma(c1, al[ks], bh);
+            mma(c2, ah[ks], bl);
+            mma(s, ah[ks], bh);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[e] += c1[e] + c2[e];
+        // the thread's columns 2tq and 2tq+1 of S's n-tile kk: keys k0, k1
+        const int k0 = Keys<T>::key(kk, 2 * tq), k1 = Keys<T>::key(kk, 2 * tq + 1);
+        const float b0 = __ldg(w.b5 + d0 + k0), b1 = __ldg(w.b5 + d0 + k1);
+        // P as the A fragment of P X: slot tq <- column 2tq, slot tq+4 <- 2tq+1
+        uint32_t ph[4], pl[4];
+        split(ffr::sigmoid(s[0] + b0), ph[0], pl[0]);  // (g, slot tq)
+        split(ffr::sigmoid(s[2] + b0), ph[1], pl[1]);  // (g+8, slot tq)
+        split(ffr::sigmoid(s[1] + b1), ph[2], pl[2]);  // (g, slot tq+4)
+        split(ffr::sigmoid(s[3] + b1), ph[3], pl[3]);  // (g+8, slot tq+4)
+        const int x0 = k0 * hw + g, x1 = k1 * hw + g;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const bool ok = 8 * nt + g < hw;  // columns 49..55 are zero
+          uint32_t xh[2], xl[2];
+          x_frag(xs, x0 + 8 * nt, ok, xh[0], xl[0]);
+          x_frag(xs, x1 + 8 * nt, ok, xh[1], xl[1]);
+          float step[4];  // this k-step's share, then added to O in fp32
+          mma(step, pl, xh, zero);
+          if (sizeof(T) == 4) mma(step, ph, xl);  // bf16: X exact in TF32, xl = 0
+          mma(step, ph, xh);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[nt][e] += step[e];
+        }
+      }
+      __syncthreads();  // every warp is done with buffer buf before it refills
+    }
+    // O (16 x 56 a warp) to out, columns below HW
+    T* d_lo = on + (size_t)(r0 + 16 * warp + g) * hw;
+    T* d_hi = d_lo + (size_t)8 * hw;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = 8 * nt + 2 * tq;
+      if (col < hw) {
+        d_lo[col] = from_f<T>(o[nt][0]);
+        d_hi[col] = from_f<T>(o[nt][2]);
+      }
+      if (col + 1 < hw) {
+        d_lo[col + 1] = from_f<T>(o[nt][1]);
+        d_hi[col + 1] = from_f<T>(o[nt][3]);
+      }
+    }
   }
 }
 
 template <typename T>
-void launch(const void* x, const CbWeights& w, const float* w1s, float* inv_r, float* t,
-            void* out, int n, int c, int hw, cudaStream_t stream) {
-  cb_prep_kernel<T><<<n, 256, 0, stream>>>(static_cast<const T*>(x), w1s, inv_r, t, c, hw);
-  cb_rows_kernel<T><<<dim3(c / BM, n), 256, 0, stream>>>(static_cast<const T*>(x), inv_r, t, w,
-                                                         static_cast<T*>(out), c, hw);
+cudaError_t prepare() {
+  static const cudaError_t err = [] {
+    cudaError_t e = cudaFuncSetAttribute(cb_sigmoid_attention_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(cb_sigmoid_attention_kernel<T>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    return e;
+  }();
+  return err;
+}
+
+template <typename T>
+cudaError_t launch(const void* x, const CbWeights& w, void* out, int n, int c, int hw,
+                   int cluster, cudaStream_t stream) {
+  if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)) ||
+      c % (BM * cluster) || hw < 1 || hw > HWMAX || n < 1)
+    return cudaErrorInvalidValue;
+  cudaError_t e = prepare<T>();
+  if (e != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(n * cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, cb_sigmoid_attention_kernel<T>, static_cast<const T*>(x), w,
+                         static_cast<T*>(out), c, hw);
+  const cudaError_t last = cudaGetLastError();
+  return e != cudaSuccess ? e : last;
 }
 
 }  // namespace
 
 // x, out: (N, C, HW) contiguous, of one type (float if is_bf16 == 0, else
-// bf16). Weights are fp32 and contiguous: w1f (32, HW), w1s (32, C), b1 (32),
-// s0/s1/s2 (C), wc1/wc2 (32, 32), bc1/bc2 (32), w5 (C, 32), b5 (C).
-// inv_r (N, C) and t (N, 32, HW) are fp32 scratch. The wrapper checks
-// C % 64 == 0 and HW <= 56. Returns cudaGetLastError() after the launches.
+// bf16); x and w5 16-byte aligned. Weights are fp32 and contiguous: w1f
+// (32, HW), w1s (32, C), b1 (32), s0/s1/s2 (C), wc1/wc2 (32, 32), bc1/bc2
+// (32), w5 (C, 32), b5 (C). `cluster` CTAs per sample (1, 2, 4 or 8, from
+// ops/kernels/channel_branch.py::_cb_plan) each own C / cluster rows of M,
+// a multiple of 64. Returns the launch's error, else cudaGetLastError();
+// cudaErrorInvalidValue for a shape or plan the kernel does not take.
 extern "C" int channel_branch_launch(const void* x, const void* w1f, const void* w1s,
                                      const void* b1, const void* s0, const void* wc1,
                                      const void* bc1, const void* s1, const void* wc2,
                                      const void* bc2, const void* s2, const void* w5,
-                                     const void* b5, void* inv_r, void* t, void* out, int n,
-                                     int c, int hw, int is_bf16, void* stream) {
-  const CbWeights w{static_cast<const float*>(w1f), static_cast<const float*>(b1),
-                    static_cast<const float*>(s0),  static_cast<const float*>(wc1),
-                    static_cast<const float*>(bc1), static_cast<const float*>(s1),
-                    static_cast<const float*>(wc2), static_cast<const float*>(bc2),
-                    static_cast<const float*>(s2),  static_cast<const float*>(w5),
-                    static_cast<const float*>(b5)};
+                                     const void* b5, void* out, int n, int c, int hw,
+                                     int cluster, int is_bf16, void* stream) {
+  const CbWeights w{static_cast<const float*>(w1f), static_cast<const float*>(w1s),
+                    static_cast<const float*>(b1),  static_cast<const float*>(s0),
+                    static_cast<const float*>(wc1), static_cast<const float*>(bc1),
+                    static_cast<const float*>(s1),  static_cast<const float*>(wc2),
+                    static_cast<const float*>(bc2), static_cast<const float*>(s2),
+                    static_cast<const float*>(w5),  static_cast<const float*>(b5)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* w1s_f = static_cast<const float*>(w1s);
-  float* inv = static_cast<float*>(inv_r);
-  float* tt = static_cast<float*>(t);
-  if (is_bf16)
-    launch<__nv_bfloat16>(x, w, w1s_f, inv, tt, out, n, c, hw, s);
-  else
-    launch<float>(x, w, w1s_f, inv, tt, out, n, c, hw, s);
-  return (int)cudaGetLastError();
+  if (is_bf16) return (int)launch<__nv_bfloat16>(x, w, out, n, c, hw, cluster, s);
+  return (int)launch<float>(x, w, out, n, c, hw, cluster, s);
 }

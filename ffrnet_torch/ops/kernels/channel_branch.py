@@ -1,10 +1,17 @@
 """Fused RecNet channel branch: CUDA kernel (csrc/channel_branch.cu), plain
-twin and the fp32 weight prep `_collapse`.
+twin, the fp32 weight prep `_collapse` and the launch plan `_cb_plan`.
 
 Replaces ffrnet_tpu/ops/pallas/channel_branch.py::channel_branch_pallas.
-Bound (at C=512, HW=49, N=256, fp32): 12.6 GFLOP, 0.19 ms on fp32 SIMT;
-the (C, C) attention matrix stays in shared memory, one block per 64 of
-its rows (see the source note).
+The kernel is a sigmoid attention per sample (queries h, keys W5 with bias
+b5, values X) in one thread-block-cluster launch: the cluster's CTAs share
+the only reduction over all rows (t) through distributed shared memory,
+and each warp keeps 16 rows of the (C, C) matrix M in registers between
+two tensor-core products (mma.sync m16n8k8, TF32). Each product is split
+into TF32 hi/lo parts (3xTF32; 2 products for M X in bf16, whose X is
+exact in TF32): one TF32 pass puts the output about 100x the fp32 bound of
+1e-4 off the plain version (tests/test_torch_cb_split.py).
+Bound at C=512, HW=49, N=256, fp32: 0.066 ms (the products as 3xTF32 at
+495 TFLOP/s); 0.189 ms if every operation ran on fp32 SIMT; bf16 0.053 ms.
 
 Output layout: (N, C, HW), which is NCHW. The JAX kernel returns the
 transpose, (N, HW, C).
@@ -18,6 +25,23 @@ from ffrnet_torch.ops.kernels import _build
 
 _EPS = 1e-12
 _DTYPES = (torch.float32, torch.bfloat16)
+ROWS = 64        # rows of M a CTA takes at once (4 warps of 16)
+MAX_CLUSTER = 8  # the portable cluster size
+
+
+def _cb_plan(c: int) -> tuple:
+    """(cluster, rows): the CTAs per sample and the rows of M each owns.
+
+    A cluster of up to MAX_CLUSTER CTAs, a power of two, shares one sample;
+    each CTA owns `rows` = C / cluster rows, a multiple of ROWS (64 at
+    C=512, in 8 CTAs).
+    """
+    if c < ROWS or c % ROWS:
+        raise ValueError(f"channel_branch: needs C % {ROWS} == 0, got C={c}")
+    cluster = MAX_CLUSTER
+    while (c // ROWS) % cluster:
+        cluster //= 2
+    return cluster, c // cluster
 
 
 def _collapse(params):
@@ -91,8 +115,8 @@ def channel_branch(flat, weights):
     n, c, hw = flat.shape
     if flat.dtype not in _DTYPES:
         raise TypeError(f"channel_branch: float32 or bfloat16, got {flat.dtype}")
-    if c % 64 or hw > 56:
-        raise ValueError(f"channel_branch: needs C % 64 == 0 and HW <= 56, "
+    if c % ROWS or hw > 56:
+        raise ValueError(f"channel_branch: needs C % {ROWS} == 0 and HW <= 56, "
                          f"got C={c}, HW={hw}")
     shapes = [(32, hw), (32, c), (32,), (c,), (32, 32), (32,), (c,),
               (32, 32), (32,), (c,), (c, 32), (c,)]
@@ -103,14 +127,17 @@ def channel_branch(flat, weights):
                 f"channel_branch: weight {tuple(wt.shape)} {wt.dtype} on "
                 f"{wt.device}, expected contiguous float32 {shape} on "
                 f"{flat.device}")
+    if weights[10].data_ptr() % 16:
+        raise ValueError("channel_branch: w5 must be 16-byte aligned")
     flat = flat.contiguous()
+    if flat.data_ptr() % 16:  # the kernel copies X in 16-byte pieces
+        flat = flat.clone()
     out = torch.empty_like(flat)
-    inv_r = torch.empty((n, c), device=flat.device, dtype=torch.float32)
-    t = torch.empty((n, 32, hw), device=flat.device, dtype=torch.float32)
-    fn = _build.load("channel_branch", "channel_branch_launch", 16, 4)
-    rc = fn(flat.data_ptr(), *(wt.data_ptr() for wt in weights),
-            inv_r.data_ptr(), t.data_ptr(), out.data_ptr(), n, c, hw,
-            int(flat.dtype == torch.bfloat16), _build.stream_handle(flat.device))
+    cluster, _ = _cb_plan(c)
+    fn = _build.load("channel_branch", "channel_branch_launch", 14, 5)
+    rc = fn(flat.data_ptr(), *(wt.data_ptr() for wt in weights), out.data_ptr(),
+            n, c, hw, cluster, int(flat.dtype == torch.bfloat16),
+            _build.stream_handle(flat.device))
     _build.check_launch("channel_branch", rc)
     channel_branch.launches += 1
     return out

@@ -31,7 +31,7 @@ RUNS = (("fused", "fp32"), ("fused", "bf16"), ("ss_kernel", "fp32"))
 GROUPS = (
     ("se_gating", r"se_gate_cluster_kernel"),
     ("self_similarity", r"ss_(space|channel)_kernel"),
-    ("channel_branch", r"cb_(prep|rows)_kernel"),
+    ("channel_branch", r"cb_sigmoid_attention_kernel"),
     ("layout (NCHW<->NHWC)", r"nchwToNhwc|nhwcToNchw"),
     ("conv (cuDNN)", r"fprop|dgrad|wgrad|implicit|convolve|conv|winograd|fft|flip_filter|"
                      r"cudnn|gemm_cf32|cgemm"),

@@ -26,18 +26,18 @@ TOL = {"float32": dict(atol=1e-5, rtol=1e-5), "bfloat16": dict(atol=2e-2, rtol=2
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def c4c_tree(seed, biases):
-    """A Conv4Channel tree as numpy: C=512, HW=49, with random biases or
-    with every bias None."""
+def c4c_tree(seed, biases, c=512, hw=49):
+    """A Conv4Channel tree as numpy (C=512, HW=49 unless given), with
+    random biases or with every bias None."""
     rng = np.random.default_rng(seed)
-    dims = [(512 + 49, 32), (32, 512), (512, 32), (32, 512), (512, 32), (32, 512)]
+    dims = [(c + hw, 32), (32, c), (c, 32), (32, c), (c, 32), (32, c)]
     tree = {}
     for i, (din, dout) in enumerate(dims):
         tree[f"lin{i}"] = {
             "w": (rng.standard_normal((dout, din)) * np.sqrt(2.0 / din)).astype(np.float32),
             "b": rng.normal(0, 0.1, dout).astype(np.float32) if biases else None}
     for i in range(3):
-        tree[f"prelu{i}"] = {"slope": rng.uniform(0.1, 0.4, 512).astype(np.float32)}
+        tree[f"prelu{i}"] = {"slope": rng.uniform(0.1, 0.4, c).astype(np.float32)}
     return tree
 
 
@@ -79,14 +79,56 @@ def test_cuda_kernels_match_plain(cuda, dtype):
     x[3] = 0
     for got, want in zip(self_similarity_fused(x), self_similarity_fused_plain(x)):
         torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    flat = x.reshape(4, 512, 49)
     for biases in (True, False):
-        weights = tuple(t.to(cuda) for t in _collapse(
-            tree_map(c4c_tree(5, biases), torch.from_numpy)))
-        flat = x.reshape(4, 512, 49)
-        # 512-term fp32 sums in another order
-        tol = TOL[dtype] if dtype == "bfloat16" else dict(atol=1e-4, rtol=1e-4)
-        torch.testing.assert_close(channel_branch(flat, weights).float(),
-                                   channel_branch_plain(flat, weights).float(), **tol)
+        weights = cb_weights(5, biases, 512, 49, cuda)
+        check_channel_branch(flat, weights, dtype)
+    check_channel_branch_edges(cuda, dtype)
+
+
+def cb_weights(seed, biases, c, hw, device):
+    return tuple(t.to(device) for t in _collapse(
+        tree_map(c4c_tree(seed, biases, c, hw), torch.from_numpy)))
+
+
+def check_channel_branch(flat, weights, dtype, scale=1):
+    """Kernel vs plain twin: fp32 within 1e-4 (512-term sums in another
+    order, 3xTF32 products), its atol scaled with the input (`scale`);
+    bf16 within one rounding of the output. A zero sample gives zeros."""
+    tol = TOL[dtype] if dtype == "bfloat16" else dict(atol=1e-4 * scale, rtol=1e-4)
+    got = channel_branch(flat, weights)
+    assert got.dtype == flat.dtype and got.shape == flat.shape
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), channel_branch_plain(flat, weights).float(), **tol)
+    zero = (flat == 0).flatten(1).all(1)
+    assert (got[zero] == 0).all()
+
+
+def check_channel_branch_edges(cuda, dtype):
+    """N = 1, 3 (one zero sample) and 64 at C=512, HW=49, with and without
+    biases; saturated sigmoids (W5 and b5 x8); a batch x8; and other
+    plans: C=128 (a cluster of 2), C=192 (one CTA, three row blocks) with
+    HW=56 (every tile column used) and HW=20."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(3)
+    dt = TDT[dtype]
+    for biases in (True, False):
+        w = cb_weights(7, biases, 512, 49, cuda)
+        for n in (1, 3, 64):
+            flat = torch.randn(n, 512, 49, generator=g)
+            if n == 3:
+                flat[1] = 0
+            check_channel_branch(flat.to(cuda, dt), w, dtype)
+        flat = torch.randn(3, 512, 49, generator=g).to(cuda, dt)
+        saturated = w[:10] + (8 * w[10], 8 * w[11])
+        check_channel_branch(flat, saturated, dtype)
+        # the fp32 twin alone is 0.96-1.1e-4 off an fp64 evaluation here
+        # (tests/test_torch_cb_split.py): the sums' rounding grows with x
+        check_channel_branch(8 * flat, w, dtype, scale=8)
+    for n, c, hw in ((2, 128, 20), (3, 192, 56)):
+        flat = torch.randn(n, c, hw, generator=g)
+        flat[-1] = 0
+        check_channel_branch(flat.to(cuda, dt), cb_weights(8, True, c, hw, cuda), dtype)
 
 
 @pytest.mark.cuda

@@ -195,7 +195,8 @@ def test_import_leaves_jax_out():
     because this test process has imported jax already."""
     code = ("import sys, ffrnet_torch, ffrnet_torch.api, ffrnet_torch.ops.kernels, "
             "ffrnet_torch.checkpoint.convert, ffrnet_torch.ops.align, "
-            "ffrnet_torch.ops.kernels.warp, ffrnet_torch.tools.align_dataset; "
+            "ffrnet_torch.ops.kernels.warp, ffrnet_torch.tools.align_dataset, "
+            "ffrnet_torch.tools.mma_rate; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'ffrnet_tpu')); print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
