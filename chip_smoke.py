@@ -13,7 +13,10 @@ exits non-zero without a result line:
               se_gating and channel_branch also at N=1 and 3, with an
               all-zero sample (se_gating on every cluster size its plans
               take, channel_branch also with saturated sigmoids and a batch
-              x8); the two warps on 250x250x3 noise, to 112x112 and 112x96
+              x8); self_similarity at N=256 (also x100) and on every C of
+              64, 192, 512 by HW of 16, 49, 64 by N of 1, 3, 64, with a zero
+              sample and a zero channel row, ss_channel exactly symmetric;
+              the two warps on 250x250x3 noise, to 112x112 and 112x96
   4. main     FFRNet.random(seed=0) embed / verify / evaluate in both RecNet
               configurations (fused channel branch; self-similarity kernel),
               plus a BN-folded model; whole-path parity with the CPU
@@ -26,8 +29,10 @@ exits non-zero without a result line:
               kernel's time beside its plain version, its bound and, for
               the warps, F.affine_grid + F.grid_sample, with CUDA events;
               se_gating's gates stage by stage and in bf16, and
-              channel_branch in fp32 and bf16, from CUDA graphs beside
-              their bounds
+              channel_branch and self_similarity in fp32 and bf16, from CUDA
+              graphs beside their bounds (self_similarity also through the
+              host); beside it, as a yardstick, torch.bmm for its unscaled
+              channel Gram alone
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit as nvidia-smi gives them, and the result line
@@ -209,8 +214,6 @@ def c4c_weights(model, seed, biases, device):
 
 def phase_kernels(model, dev):
     from ffrnet_torch.ops.kernels.se_gating import _se_plan, se_gating, se_gating_plain
-    from ffrnet_torch.ops.kernels.self_similarity import (self_similarity_fused,
-                                                          self_similarity_fused_plain)
 
     n = 64
     g = gen(10)
@@ -237,21 +240,56 @@ def phase_kernels(model, dev):
                     errs["se_gating"] = max(errs["se_gating"], e)
         if clusters != {1, 2, 4, 8}:
             raise AssertionError(f"se_gating {dname}: cluster sizes {sorted(clusters)} checked")
-        x = torch.randn(n, 512, 7, 7, generator=g).to(dev, dt)
-        x[-1] = 0  # an all-zero map stays finite
-        tol = TOL.get((dname, "self_similarity"), BF16_TOL)
-        for which, got, want in zip(("ss_space", "ss_channel"), self_similarity_fused(x),
-                                    self_similarity_fused_plain(x)):
-            e = check_close(f"self_similarity {which} {dname}", got, want, *tol)
-            log("kernels", f"self_similarity {which} {dname} x{tuple(x.shape)} (one zero "
-                f"sample) max_abs_err {e:.3e} tol atol={tol[0]} rtol={tol[1]}")
-            if dname == "fp32":
-                errs["self_similarity"] = max(errs["self_similarity"], e)
+        e = check_self_similarity(dev, dname, dt, g)
+        if dname == "fp32":
+            errs["self_similarity"] = e
         e = check_channel_branch(model, dev, dname, dt, g, n)
         if dname == "fp32":
             errs["channel_branch"] = e
     torch.cuda.synchronize()
     return errs
+
+
+def check_self_similarity(dev, dname, dt, g):
+    """self_similarity vs its twin at the main path's (256, 512, 7, 7), the
+    same x100, and every (N, C, HW) of N 1, 3, 64 by C 64, 192, 512 by HW
+    16, 49, 64. Sample 0 has a zero channel row (its norm takes the 1e-12
+    clamp) and sample 1, where there is one, is all zero. Both outputs must
+    be exactly symmetric: each off-diagonal tile of ss_channel is stored
+    twice from one value. Returns the largest error."""
+    from ffrnet_torch.ops.kernels.self_similarity import (self_similarity_fused,
+                                                          self_similarity_fused_plain)
+
+    tol = TOL.get((dname, "self_similarity"), BF16_TOL)
+    edges = [(n, c, h) for c in (64, 192, 512) for h in (4, 7, 8) for n in (1, 3, 64)]
+    cases = [((256, 512, 7, 7), 1), ((256, 512, 7, 7), 100)]
+    cases += [((n, c, h, h), 1) for n, c, h in edges]
+    worst = {}
+    for shape, scale in cases:
+        x = scale * torch.randn(*shape, generator=g)
+        x[0, 5] = 0
+        if shape[0] > 1:
+            x[1] = 0
+        x = x.to(dev, dt)
+        name = f"x{shape}{' x100' if scale > 1 else ''}"
+        key = name if shape[0] == 256 else "edges"
+        for which, got, want in zip(("ss_space", "ss_channel"), self_similarity_fused(x),
+                                    self_similarity_fused_plain(x)):
+            what = f"self_similarity {which} {dname} {name}"
+            if got.dtype != x.dtype or got.shape != want.shape:
+                raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)}")
+            e = check_close(what, got, want, *tol)
+            if not torch.equal(got, got.transpose(1, 2)):
+                raise AssertionError(f"{what}: not exactly symmetric")
+            worst[key, which] = max(worst.get((key, which), 0.0), e)
+    for key in [k for k, w in worst if w == "ss_space"]:
+        what = key if key != "edges" else (f"{len(edges)} edge shapes (N 1/3/64, C 64/192/512, "
+                                           f"HW 16/49/64)")
+        log("kernels", f"self_similarity {dname} {what}, a zero channel row and a zero sample: "
+            f"max_abs_err ss_space {worst[key, 'ss_space']:.3e} ss_channel "
+            f"{worst[key, 'ss_channel']:.3e} tol atol={tol[0]} rtol={tol[1]}; both exactly "
+            f"symmetric")
+    return max(worst.values())
 
 
 def check_channel_branch(model, dev, dname, dt, g, n):
@@ -584,22 +622,27 @@ def cb_bound(n, itemsize=4, c=512, hw=49):
     return max((t_tc, by), (t_ops, "operations"), (t_bytes, "bytes"))
 
 
+def ss_bound(n, itemsize=4, c=512, hw=49):
+    """(bound_ms, bound_by) of self_similarity at batch n: x read once, both
+    Grams written once; both are symmetric, so a SYRK needs only their
+    upper triangles, plus the rows' sums of squares, in fp32."""
+    nbytes = n * c * hw * itemsize + n * (hw * hw + c * c) * itemsize
+    ops = 2 * n * (hw * (hw + 1) // 2 * c + c * (c + 1) // 2 * hw) + 2 * n * c * hw
+    return roof(nbytes, ops)
+
+
 def bounds(n):
     """(bound_ms, bound_by) per kernel at batch n in fp32, from the bytes
     each must move (inputs read once, outputs written once) and the fp32
     operations it does (channel_branch: `cb_bound`)."""
     b = 4
-    c, hw = 512, 49
-    ss_bytes = n * c * hw * b + n * (hw * hw + c * c) * b
-    # both Grams are symmetric: a SYRK needs only their upper triangles
-    ss_ops = 2 * n * (hw * (hw + 1) // 2 * c + c * (c + 1) // 2 * hw) + 2 * n * c * hw
     # the warps, (n, 250, 250, 3) -> (n, 112, 112, 3) with (n, 2, 3)
     # matrices: per output pixel 8 operations for its coordinates, 12 for
     # its four tent weights, 9 per channel for the 2x2 taps
     h, w, ch, p_out = 250, 250, 3, 112 * 112
     warp_bytes = (n * h * w * ch + n * 6 + n * p_out * ch) * b
     warp_ops = n * p_out * (20 + 9 * ch)
-    return {"se_gating": se_bound(n, b), "self_similarity": roof(ss_bytes, ss_ops),
+    return {"se_gating": se_bound(n, b), "self_similarity": ss_bound(n, b),
             "channel_branch": cb_bound(n),
             "warp_affine_full": roof(warp_bytes, warp_ops),
             "warp_affine_band": roof(warp_bytes, warp_ops)}
@@ -713,6 +756,7 @@ def phase_times(models, dev, card):
             f"ms, bound {bound[k][0]:.4f} ms ({bound[k][1]}) | {card}")
     se_times(x_se, n, card)
     cb_times(flat, w_cb, n, card)
+    ss_times(x_ss, n, card)
     # the library's bilinear zero-border warp on an NCHW copy made here,
     # outside the timed region; first held against the plain warp
     x_nchw = imgs.permute(0, 3, 1, 2).contiguous()
@@ -750,6 +794,42 @@ def cb_times(flat, w_cb, n, card):
         f"{f32:.4f} ms ({by32}; {100 * f32 / min(f1, f2):.0f}%), every operation on fp32 SIMT "
         f"{simt:.4f} ms; bf16 {b1:.4f}/{b2:.4f} ms, bound {b16:.4f} ms ({by16}; "
         f"{100 * b16 / min(b1, b2):.0f}%) | {card}")
+
+
+def ss_times(x_ss, n, card):
+    """self_similarity alone at (n, 512, 7, 7) in fp32 and in bf16 (fp32,
+    bf16, bf16, fp32): the wrapper's call timed with CUDA events ("host")
+    and a CUDA-graph replay of it ("device"), each beside its bound. Beside
+    it, as a yardstick and not as the same function (no norms, no ss_space,
+    the whole Gram where the kernel computes half): torch.bmm(x, x^T) for
+    the unscaled channel Gram in fp32, TF32 off."""
+    from ffrnet_torch.ops.kernels.self_similarity import self_similarity_fused
+
+    x_bf = x_ss.bfloat16()
+    runs = {"fp32": lambda: self_similarity_fused(x_ss),
+            "bf16": lambda: self_similarity_fused(x_bf)}
+    t = {k: [] for k in runs}
+    for k in ("fp32", "bf16", "bf16", "fp32"):
+        t[k].append((cuda_ms(runs[k]), graph_ms(runs[k])))
+    (f32, by32), (b16, by16) = ss_bound(n, 4), ss_bound(n, 2)
+    # bf16's products run on the tensor cores, where the bytes bound it
+    b16_bytes = roof(n * 512 * 49 * 2 + n * (49 * 49 + 512 * 512) * 2, 0)[0]
+    fmt = {k: (f"host {v[0][0]:.4f}/{v[1][0]:.4f} ms, device {v[0][1]:.4f}/{v[1][1]:.4f} ms",
+               min(v[0][1], v[1][1])) for k, v in t.items()}
+    log("times", f"self_similarity ({n},512,7,7): fp32 {fmt['fp32'][0]}, bound {f32:.4f} ms "
+        f"({by32}; {100 * f32 / fmt['fp32'][1]:.0f}% of device); bf16 {fmt['bf16'][0]}, bound "
+        f"{b16:.4f} ms ({by16} on fp32 SIMT; {100 * b16 / fmt['bf16'][1]:.0f}%), "
+        f"{b16_bytes:.4f} ms by bytes with the products on the tensor cores "
+        f"({100 * b16_bytes / fmt['bf16'][1]:.0f}%) | {card}")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flat = x_ss.reshape(n, 512, 49)
+    gram = (lambda: torch.bmm(flat, flat.transpose(1, 2)))
+    host = min(cuda_ms(gram), cuda_ms(gram))
+    dev = min(graph_ms(gram), graph_ms(gram))
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    log("times", f"yardstick torch.bmm(x, x^T) ({n},512,49) fp32 TF32 off, the unscaled "
+        f"channel Gram alone: {host:.4f} ms host, {dev:.4f} ms device (graph) | {card}")
 
 
 def se_times(x_se, n, card):

@@ -177,8 +177,8 @@ class FFRNet:
         return s_rect if rectified else s_raw
 
     def evaluate(self, batches: Iterable) -> Tuple[float, float]:
-        """10-fold protocol over {'img1','img2','label'} batches ->
-        (acc_rectified, acc_raw)."""
+        """10-fold protocol over {'img1','img2','label'} batches, or packed
+        {'imgs': (N, 2, H, W, 3), 'label'} ones -> (acc_rectified, acc_raw)."""
         res_new, res_raw = evaluate_pairs(self.pair_scores, batches)
         return float(res_new.mean_accuracy), float(res_raw.mean_accuracy)
 

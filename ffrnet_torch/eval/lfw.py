@@ -79,13 +79,25 @@ def kfold_verification(scores, labels, *, n_folds: int = N_FOLDS) -> FoldResult:
                       best_thresholds=thresholds[best_idx])
 
 
+def _host(a):
+    """A numpy array of `a` on the host. A tensor may lie on the card or be
+    of a type numpy lacks: bf16 and fp16 widen to float32, exactly."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+        if a.dtype in (torch.bfloat16, torch.float16):
+            a = a.float()
+        return a.numpy()
+    return np.asarray(a)
+
+
 def misclassified_indices(scores, labels, result: FoldResult, *,
                           n_folds: int = N_FOLDS):
     """Global indices of pairs misclassified by their own fold's threshold
-    (host-side numpy; feeds image dumps)."""
-    scores = np.asarray(scores)
-    labels = np.asarray(labels) > 0
-    thresholds = np.asarray(result.best_thresholds)
+    (host-side numpy; feeds image dumps). Scores, labels and the result may
+    be tensors on the card, in bf16 too."""
+    scores = _host(scores)
+    labels = _host(labels) > 0
+    thresholds = _host(result.best_thresholds)
     per_fold = scores.shape[0] // n_folds
     n_used = per_fold * n_folds
     fold_of = np.arange(n_used) // per_fold

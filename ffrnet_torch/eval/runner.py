@@ -16,7 +16,9 @@ from ffrnet_torch.eval.lfw import kfold_verification
 
 
 def evaluate_pairs(score_fn: Callable, batches: Iterable):
-    """Full verification protocol over {'img1', 'img2', 'label'} batches.
+    """Full verification protocol over {'img1', 'img2', 'label'} batches,
+    or packed {'imgs': (N, 2, H, W, 3), 'label'} ones, split here into
+    imgs[:, 0] and imgs[:, 1].
 
     score_fn(img1, img2) -> (scores_raw, scores_rect) on the device, e.g.
     `FFRNet.pair_scores`. Returns (result_rect, result_raw) on the host,
@@ -24,7 +26,10 @@ def evaluate_pairs(score_fn: Callable, batches: Iterable):
     """
     raw_chunks, new_chunks, labels = [], [], []
     for batch in batches:
-        s_raw, s_new = score_fn(batch["img1"], batch["img2"])
+        if "imgs" in batch:
+            s_raw, s_new = score_fn(batch["imgs"][:, 0], batch["imgs"][:, 1])
+        else:
+            s_raw, s_new = score_fn(batch["img1"], batch["img2"])
         raw_chunks.append(s_raw)
         new_chunks.append(s_new)
         labels.append(torch.as_tensor(batch["label"]).to(s_raw.device,

@@ -4,10 +4,10 @@ device's busy and idle share, from a torch.profiler trace.
     python3 -m ffrnet_torch.tools.profile_embed
 
 Needs an NVIDIA GPU. Profiles 3 embeds of N=256 uint8 faces already on the
-card (after 2 warm-up) for each of fused fp32, fused bf16 and ss_kernel
-fp32. Prints, per run, one line per kernel group (sorted by time) with the
-kernels that make up the group, and a JSON summary with the card's name and
-power limit.
+card (after 2 warm-up) for each of fused and ss_kernel, in fp32 and in
+bf16. Prints, per run, one line per kernel group (sorted by time) with the
+kernels that make up the group, and a JSON summary with the card's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import time
 import torch
 
 N, ITERS = 256, 3
-RUNS = (("fused", "fp32"), ("fused", "bf16"), ("ss_kernel", "fp32"))
+RUNS = (("fused", "fp32"), ("fused", "bf16"), ("ss_kernel", "fp32"), ("ss_kernel", "bf16"))
 
 # kernel-name patterns -> group; the first match wins. cuDNN's layout
 # kernels (cudnn::ops::nchwToNhwcKernel) go before the convolutions, and
@@ -30,7 +30,7 @@ RUNS = (("fused", "fp32"), ("fused", "bf16"), ("ss_kernel", "fp32"))
 # complex product
 GROUPS = (
     ("se_gating", r"se_gate_cluster_kernel"),
-    ("self_similarity", r"ss_(space|channel)_kernel"),
+    ("self_similarity", r"ss_gram_kernel"),
     ("channel_branch", r"cb_sigmoid_attention_kernel"),
     ("layout (NCHW<->NHWC)", r"nchwToNhwc|nhwcToNchw"),
     ("conv (cuDNN)", r"fprop|dgrad|wgrad|implicit|convolve|conv|winograd|fft|flip_filter|"

@@ -77,13 +77,51 @@ def test_cuda_kernels_match_plain(cuda, dtype):
     assert clusters == {8, 4, 2, 1}
     x = torch.randn(4, 512, 7, 7, generator=g).to(cuda, dt)
     x[3] = 0
-    for got, want in zip(self_similarity_fused(x), self_similarity_fused_plain(x)):
-        torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    check_self_similarity(x, dtype)
+    check_self_similarity_edges(cuda, dtype)
     flat = x.reshape(4, 512, 49)
     for biases in (True, False):
         weights = cb_weights(5, biases, 512, 49, cuda)
         check_channel_branch(flat, weights, dtype)
     check_channel_branch_edges(cuda, dtype)
+
+
+def check_self_similarity(x, dtype):
+    """Kernel vs plain twin within TOL, in x's type and shapes; both Grams
+    exactly symmetric (each off-diagonal tile of ss_channel is stored twice
+    from one value, and both halves of a diagonal tile come from the same
+    products summed in the same order)."""
+    n, c, h, w = x.shape
+    got = self_similarity_fused(x)
+    for g, want, shape in zip(got, self_similarity_fused_plain(x),
+                              ((n, h * w, h * w), (n, c, c))):
+        assert g.dtype == x.dtype and tuple(g.shape) == shape
+        assert torch.isfinite(g).all()
+        torch.testing.assert_close(g.float(), want.float(), **TOL[dtype])
+        assert torch.equal(g, g.transpose(1, 2))
+
+
+def check_self_similarity_edges(cuda, dtype):
+    """Every (N, C, HW) of N 1, 3, 64 by C 64, 192, 512 by HW 16, 49, 64.
+    Sample 0 has a zero channel row (its norm takes the 1e-12 clamp; its
+    row and column of ss_channel are 0); sample 1, where there is one, is
+    all zero; and the main path's shape again with the inputs x100."""
+    g = torch.Generator().manual_seed(4)
+    dt = TDT[dtype]
+    for c in (64, 192, 512):
+        for h in (4, 7, 8):
+            for n in (1, 3, 64):
+                x = torch.randn(n, c, h, h, generator=g)
+                x[0, 5] = 0
+                if n > 1:
+                    x[1] = 0
+                x = x.to(cuda, dt)
+                check_self_similarity(x, dtype)
+                ss_channel = self_similarity_fused(x)[1]
+                assert (ss_channel[0, 5] == 0).all() and (ss_channel[0, :, 5] == 0).all()
+                if n > 1:
+                    assert (ss_channel[1] == 0).all()
+    check_self_similarity((100 * torch.randn(3, 512, 7, 7, generator=g)).to(cuda, dt), dtype)
 
 
 def cb_weights(seed, biases, c, hw, device):
