@@ -1,4 +1,4 @@
-"""Drive the PyTorch/H100 port's inference and ingest paths on one NVIDIA GPU.
+"""Drive the PyTorch/H100 port's inference, ingest and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -33,6 +33,18 @@ exits non-zero without a result line:
               graphs beside their bounds (self_similarity also through the
               host); beside it, as a yardstick, torch.bmm for its unscaled
               channel Gram alone
+  8. train    RecNet training at full width (IR-SE50 frozen, C=512, the
+              10575-class head) in both RecNet configurations: each kernel
+              Function's gradient (kernel forward, the plain twin's VJP)
+              against autograd through the twin, fp32 and bf16, at
+              (64, 512, 7, 7), the encoder's SE shapes and (64, 512, 49);
+              one train_step at N=4 on the card against the CPU (fp32, TF32
+              off, SGD); the launches of one train_step and of one
+              train_step_from_features; the JAX package's convergence
+              protocol (64 SyntheticPairs identities, Adam lr 1e-3, batch
+              64, up to 300 steps); step ms and train imgs/s at N=128 in
+              fp32 and bf16, train_step and train_step_from_features; the
+              self_similarity Function's backward beside its forward
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit as nvidia-smi gives them, and the result line
@@ -874,6 +886,259 @@ def se_times(x_se, n, card):
             f"{b16[0]:.4f} ms ({100 * b16[0] / t16:.0f}%) | {card}")
 
 
+# ------------------------------------------------------------------ phase 8
+
+# card vs CPU after one SGD update (lr 1e-2): the losses within 1e-4
+# (fp32, TF32 off, convolutions summed in other orders through 49 + 15
+# conv layers); each parameter moves by lr * g, and g is
+# about 1e-4 relative apart where the BN cancels a large common offset,
+# so the parameters within 1e-5 (tenfold margin over lr * 1e-4 * |g|max)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_PARAM_ATOL = 1e-5
+TRAIN_CONFIGS = ("fused", "ss_kernel")
+
+
+def train_cfg(name, num_classes=10575, **kw):
+    from dataclasses import replace
+
+    from ffrnet_torch.models.recnet import SS_KERNEL_CONFIG, RecNetConfig
+    from ffrnet_torch.training.trainer import TrainerConfig
+
+    rec = SS_KERNEL_CONFIG if name == "ss_kernel" else RecNetConfig()
+    return TrainerConfig(recnet=replace(rec, num_classes=num_classes), **kw)
+
+
+def image_batch(n, seed, num_classes=10575):
+    g = gen(seed)
+    return {"img_non": torch.randint(0, 256, (n, 112, 112, 3), generator=g, dtype=torch.uint8),
+            "img_ocl": torch.randint(0, 256, (n, 112, 112, 3), generator=g, dtype=torch.uint8),
+            "label": torch.randint(0, num_classes, (n,), generator=g)}
+
+
+def train_grad_checks(model, dev):
+    """Each kernel Function vs autograd through its plain twin on the same
+    inputs: the forward within the kernel's tolerance, the gradients equal
+    to the bit (the backward recomputes the twin from the saved inputs)."""
+    from ffrnet_torch.ops.kernels.channel_branch import channel_branch, channel_branch_plain
+    from ffrnet_torch.ops.kernels.se_gating import se_gating, se_gating_plain
+    from ffrnet_torch.ops.kernels.self_similarity import (self_similarity_fused,
+                                                          self_similarity_fused_plain)
+
+    g = gen(80)
+    n = 64
+    w_cb = c4c_weights(model, 80, True, "cpu")
+    for dname, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        cases = [("self_similarity", (torch.randn(n, 512, 7, 7, generator=g),),
+                  self_similarity_fused, self_similarity_fused_plain)]
+        for h, c, _ in SE_STAGES:
+            cases.append((f"se_gating ({n},{c},{h},{h})",
+                          (torch.randn(n, c, h, h, generator=g),
+                           0.2 * torch.randn(c // 16, c, generator=g),
+                           0.2 * torch.randn(c, c // 16, generator=g)), se_gating, se_gating_plain))
+        cases.append(("channel_branch", (torch.randn(n, 512, 49, generator=g), *w_cb),
+                      lambda f, *w: channel_branch(f, w), lambda f, *w: channel_branch_plain(f, w)))
+        for what, host, kern, plain in cases:
+            # channel_branch's weights stay fp32 in both types
+            args = [t.to(dev, dt if i == 0 or not what.startswith("channel") else torch.float32)
+                    for i, t in enumerate(host)]
+            outs, grads = [], []
+            for fn in (kern, plain):
+                leaves = [a.detach().clone().requires_grad_() for a in args]
+                out = fn(*leaves)
+                out = out if isinstance(out, tuple) else (out,)
+                cot = [torch.randn(o.shape, generator=gen(81)).to(dev, o.dtype) for o in out]
+                grads.append(torch.autograd.grad(out, leaves, cot))
+                outs.append(out)
+            tol = TOL.get((dname, what.split(" ")[0]), BF16_TOL)
+            err = max(check_close(f"train grad check {what} {dname} forward", a, b, *tol)
+                      for a, b in zip(*outs))
+            for i, (a, b) in enumerate(zip(*grads)):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"train grad check {what} {dname}: input {i}'s gradient "
+                                         f"{(a.float() - b.float()).abs().max().item():.3e} off "
+                                         f"the plain twin's")
+            log("train", f"{what} {dname}: forward max_abs_err {err:.3e} (tol {tol[0]}), "
+                f"gradients of {len(args)} inputs equal to the plain twin's autograd")
+    torch.cuda.synchronize()
+
+
+def train_cpu_parity(dev):
+    """One train_step (N=4, uint8 images, SGD lr 1e-2) on the card and on
+    the CPU from the same weights, in both configurations."""
+    from ffrnet_torch.models.irse import build_backbone
+    from ffrnet_torch.training.trainer import create_train_state, train_step
+
+    enc_cpu = build_backbone(generator=gen(0))
+    enc_dev = build_backbone(generator=gen(0), device=dev)
+    batch = image_batch(4, 82)
+    for name in TRAIN_CONFIGS:
+        cfg = train_cfg(name, optimizer="sgd", lr=1e-2, momentum=0.0)
+        runs = []
+        for enc, where in ((enc_dev, dev), (enc_cpu, "cpu")):
+            state = create_train_state(cfg, seed=1, device=where)
+            state, m = train_step(enc, state, batch, cfg=cfg)
+            runs.append(({k: float(v) for k, v in m.items()},
+                         {k: v.cpu() for k, v in state.model.state_dict().items()}))
+        (m_card, sd_card), (m_cpu, sd_cpu) = runs
+        for k in m_cpu:
+            if not np.isfinite(m_card[k]) or abs(m_card[k] - m_cpu[k]) > (
+                    TRAIN_LOSS_RTOL * abs(m_cpu[k]) + 1e-6):
+                raise AssertionError(f"train {name}: {k} card {m_card[k]} vs CPU {m_cpu[k]}")
+        p_err = max(check_close(f"train {name}: {k} card vs CPU", sd_card[k], sd_cpu[k],
+                                TRAIN_PARAM_ATOL, 0) for k in sd_cpu if "running" not in k)
+        s_err = max(check_close(f"train {name}: {k} card vs CPU", sd_card[k], sd_cpu[k], 1e-5,
+                                TRAIN_LOSS_RTOL) for k in sd_cpu if "running" in k)
+        log("train", f"{name}: one train_step N=4, 10575 classes, card vs CPU: TotalLoss "
+            f"{m_card['TotalLoss']:.6f} / {m_cpu['TotalLoss']:.6f} (rtol {TRAIN_LOSS_RTOL}); "
+            f"parameters max_abs_err {p_err:.3e} (atol {TRAIN_PARAM_ATOL}); running stats "
+            f"{s_err:.3e}")
+
+
+def train_counts(dev):
+    """Launches of one train_step and one train_step_from_features (N=8)
+    per configuration, the counts set to 0 just before each."""
+    from ffrnet_torch.models.irse import build_backbone
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ffrnet_torch.training.trainer import (create_train_state, encode_frozen, train_step,
+                                               train_step_from_features)
+
+    enc = build_backbone(generator=gen(0), device=dev)
+    batch = image_batch(8, 83)
+    feats = encode_frozen(enc, batch)
+    out = {}
+    for name in TRAIN_CONFIGS:
+        cfg = train_cfg(name, optimizer="adam", lr=1e-3)
+        state = create_train_state(cfg, seed=1, device=dev)
+        ss = 7 if name == "ss_kernel" else 0
+        for what, fn, want in (
+                ("train_step", lambda: train_step(enc, state, batch, cfg=cfg), 24),
+                ("train_step_from_features",
+                 lambda: train_step_from_features(state, feats, cfg=cfg), 0)):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            fn()
+            torch.cuda.synchronize()
+            c = launch_counts()
+            expected = {"se_gating": want, "self_similarity": ss, "channel_branch": 0,
+                        "warp_affine_full": 0, "warp_affine_band": 0}
+            if c != expected:
+                raise AssertionError(f"train {name} {what}: launches {c}, expected {expected}")
+            out[name, what] = c
+            log("counts", f"train {name}: one {what} -> {c}")
+    return out
+
+
+def train_convergence(dev):
+    """tests/test_training.py's convergence protocol on the card, full
+    batch: 64 SyntheticPairs identities (seed 3), features encoded once,
+    Adam lr 1e-3, batch 64 drawn by rng(1), until TrainAcc > 0.95 with a
+    triplet gap > 0.09 after at least 30 steps, at most 300."""
+    from ffrnet_torch.data.datasets import SyntheticPairs
+    from ffrnet_torch.models.irse import build_backbone
+    from ffrnet_torch.training.trainer import (create_train_state, encode_frozen,
+                                               train_step_from_features)
+
+    n_ids = 64
+    ds = SyntheticPairs(num_identities=n_ids, samples_per_id=1, seed=3)
+    rng = np.random.default_rng(0)
+    samples = [ds.get(i, rng) for i in range(len(ds))]
+    batch = {k: np.stack([s[k] for s in samples]) for k in ("img_non", "img_ocl", "label")}
+    feats = encode_frozen(build_backbone(generator=gen(0), device=dev), batch)
+    for name in TRAIN_CONFIGS:
+        cfg = train_cfg(name, num_classes=n_ids, optimizer="adam", lr=1e-3)
+        state = create_train_state(cfg, seed=1, device=dev)
+        order = np.random.default_rng(1)
+        curve = []
+        t0 = time.perf_counter()
+        for it in range(300):
+            idx = torch.from_numpy(order.choice(n_ids, 64, replace=False)).to(dev)
+            state, m = train_step_from_features(
+                state, {k: v[idx] for k, v in feats.items()}, cfg=cfg)
+            m = {k: float(v) for k, v in m.items()}
+            curve.append((m["TrainAcc"], m["NegDist"] - m["PosDist"], m["TotalLoss"]))
+            if m["TrainAcc"] > 0.95 and curve[-1][1] > 0.09 and it + 1 >= 30:
+                break
+        (acc0, gap0, loss0), (acc, gap, loss) = curve[0], curve[-1]
+        if not (acc > 0.9 and gap > 0.01 and gap > gap0 + 0.01 and loss < loss0 / 2):
+            raise AssertionError(f"train {name}: did not converge in {len(curve)} steps: "
+                                 f"first {curve[0]}, last {curve[-1]}")
+        log("train", f"{name}: converged in {len(curve)} steps ({time.perf_counter() - t0:.1f} s): "
+            f"TrainAcc {acc0:.3f} -> {acc:.3f}, triplet gap {gap0:+.4f} -> {gap:+.4f}, "
+            f"TotalLoss {loss0:.3f} -> {loss:.3f}")
+
+
+def train_times(dev, card):
+    """Step ms (median of 10 after 3 warm-up, CUDA events around each step)
+    and train imgs/s at N=128, 10575 classes, Adam, in both configurations,
+    fp32 and bf16, for train_step and train_step_from_features; then the
+    self_similarity Function's forward (the kernel) and backward (the twin's
+    VJP, with both Grams read or one) at (128, 512, 7, 7) fp32."""
+    from ffrnet_torch.models.irse import build_backbone
+    from ffrnet_torch.ops.kernels.self_similarity import self_similarity_fused
+    from ffrnet_torch.tools.bench_train import step_times
+    from ffrnet_torch.training.trainer import (create_train_state, encode_frozen, train_step,
+                                               train_step_from_features)
+
+    n = 128
+    enc32 = build_backbone(generator=gen(0), device=dev)
+    g = gen(84)
+    batch = {"img_non": (torch.rand(n, 112, 112, 3, generator=g) * 2 - 1).to(dev),
+             "img_ocl": (torch.rand(n, 112, 112, 3, generator=g) * 2 - 1).to(dev),
+             "label": torch.randint(0, 10575, (n,), generator=g).to(dev)}
+    for dname in ("fp32", "bf16"):
+        enc = enc32 if dname == "fp32" else build_backbone(generator=gen(0), device=dev).to(
+            torch.bfloat16)
+        feats = encode_frozen(enc, batch)
+        for name in TRAIN_CONFIGS:
+            cfg = train_cfg(name, optimizer="adam", lr=1e-3, compute_dtype=dname)
+            state = create_train_state(cfg, seed=1, device=dev)
+            torch.cuda.reset_peak_memory_stats()
+            for what, fn in (("train_step", lambda: train_step(enc, state, batch, cfg=cfg)),
+                             ("train_step_from_features",
+                              lambda: train_step_from_features(state, feats, cfg=cfg))):
+                ms, m = step_times(fn, 10)
+                if not np.isfinite(float(m["TotalLoss"])):
+                    raise AssertionError(f"train times {name} {dname} {what}: non-finite loss")
+                med = float(np.median(ms))
+                log("times", f"train {name} {dname} {what} N={n}: step median {med:.3f} ms "
+                    f"(min {min(ms):.3f}, max {max(ms):.3f}, 10 steps), {n / med * 1e3:.1f} "
+                    f"train imgs/s | {card}")
+            log("times", f"train {name} {dname}: peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            del state
+        del feats
+    x = torch.randn(n, 512, 7, 7, generator=g).to(dev).requires_grad_()
+    cot = (torch.randn(n, 49, 49, generator=g).to(dev), torch.randn(n, 512, 512, generator=g).to(dev))
+
+    def fwd_bwd(read):
+        def run():
+            out = self_similarity_fused(x)
+            torch.autograd.grad([o for o, r in zip(out, read) if r], x,
+                                [c for c, r in zip(cot, read) if r])
+        return run
+
+    with torch.no_grad():
+        fwd = min(cuda_ms(lambda: self_similarity_fused(x)),
+                  cuda_ms(lambda: self_similarity_fused(x)))
+    bwd = {read: min(cuda_ms(fwd_bwd(read)), cuda_ms(fwd_bwd(read))) - fwd
+           for read in ((True, True), (True, False), (False, True))}
+    log("times", f"self_similarity Function ({n},512,7,7) fp32: forward (the kernel) {fwd:.4f} ms; "
+        f"backward (the twin's VJP, forward+backward less forward) {bwd[True, True]:.4f} ms with "
+        f"both Grams read, {bwd[True, False]:.4f} ms with ss_space alone, "
+        f"{bwd[False, True]:.4f} ms with ss_channel alone | {card}")
+
+
+def phase_train(model, dev, card):
+    t0 = time.perf_counter()
+    train_grad_checks(model, dev)
+    train_cpu_parity(dev)
+    counts = train_counts(dev)
+    train_convergence(dev)
+    train_times(dev, card)
+    log("train", f"all training checks passed in {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 # ---------------------------------------------------------------------- main
 
 
@@ -896,6 +1161,7 @@ def main():
     main_counts = phase_main(models, dev)
     counts = phase_counts(main_counts, phase_ingest(fused, dev))
     times, bound, library = phase_times(models, dev, smi)
+    phase_train(fused, dev, smi)
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": counts[k],
          "max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],

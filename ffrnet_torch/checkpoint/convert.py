@@ -11,6 +11,13 @@ modules load with `load_state_dict`:
   * BN scale/bias/mean/var -> weight/bias/running_mean/running_var (and
     num_batches_tracked = 0)
 
+`train_state_dicts` carries a JAX TrainState (params, model_state, the
+optax opt_state, step) across: RecNet's state dict, and the optimizer's
+moments per parameter key in torch.optim's names (Adam exp_avg/exp_avg_sq
+from optax mu/nu, SGD momentum_buffer from trace, RMSprop square_avg and
+momentum_buffer, AdaBound exp_avg/exp_avg_sq), so that a run started in
+JAX takes the same next update in the port.
+
 The module takes plain numpy trees and imports nothing of the JAX package.
 """
 
@@ -39,6 +46,8 @@ def _conv(out: SD, prefix: str, p: Dict[str, Any]) -> None:
 def _bn(out: SD, prefix: str, params, state) -> None:
     out[f"{prefix}.weight"] = _t(params["scale"])
     out[f"{prefix}.bias"] = _t(params["bias"])
+    if state is None:  # a tree of parameters only
+        return
     out[f"{prefix}.running_mean"] = _t(state["mean"])
     out[f"{prefix}.running_var"] = _t(state["var"])
     out[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
@@ -90,8 +99,9 @@ def backbone_state_dict(params, state, num_layers: int = 50,
 def _conv_layer(out: SD, prefix: str, params, state) -> None:
     _conv(out, f"{prefix}.conv2d", params["conv"])
     if params["norm"]:
-        if "mean" in state["norm"]:
-            _bn(out, f"{prefix}.norm.norm", params["norm"], state["norm"])
+        if state is None or "mean" in state["norm"]:
+            _bn(out, f"{prefix}.norm.norm", params["norm"],
+                None if state is None else state["norm"])
         else:  # in / gn / layer: affine only
             out[f"{prefix}.norm.norm.weight"] = _t(params["norm"]["scale"])
             out[f"{prefix}.norm.norm.bias"] = _t(params["norm"]["bias"])
@@ -100,18 +110,23 @@ def _conv_layer(out: SD, prefix: str, params, state) -> None:
 
 
 def _res_block(out: SD, prefix: str, params, state) -> None:
-    _conv_layer(out, f"{prefix}.conv1", params["conv1"], state["conv1"])
-    _conv_layer(out, f"{prefix}.conv2", params["conv2"], state["conv2"])
+    for k in ("conv1", "conv2"):
+        _conv_layer(out, f"{prefix}.{k}", params[k], None if state is None else state[k])
 
 
-def recnet_state_dict(params, state) -> SD:
-    """RecNet tree -> RecNet state dict."""
+def recnet_state_dict(params, state=None) -> SD:
+    """RecNet tree -> RecNet state dict; with state None, the parameters
+    alone (a tree shaped like params: an optimizer's moments)."""
     out: SD = {}
-    sp, ss = params["conv4space"], state["conv4space"]
+
+    def sub(*keys):
+        return None if state is None else _get(state, keys)
+
+    sp, ss = params["conv4space"], sub("conv4space")
     for name, idx in [("c0", 0), ("r0", 1), ("c1", 2), ("r1", 3), ("c2", 4),
                       ("r2", 5)]:
         add = _conv_layer if name.startswith("c") else _res_block
-        add(out, f"Conv4Space.{idx}", sp[name], ss[name])
+        add(out, f"Conv4Space.{idx}", sp[name], None if ss is None else ss[name])
     c4c = params["conv4channel"]
     for i, idx in enumerate([0, 2, 3, 5, 6, 8]):
         out[f"Conv4Channel.{idx}.weight"] = _t(c4c[f"lin{i}"]["w"])
@@ -119,7 +134,69 @@ def recnet_state_dict(params, state) -> SD:
     for i, idx in enumerate([1, 4, 7]):
         out[f"Conv4Channel.{idx}.func.weight"] = _t(c4c[f"prelu{i}"]["slope"])
     for key, name in (("flipmerge", "ChannelFlipMerge"), ("merge", "Conv4Merge")):
-        _conv_layer(out, f"{name}.0", params[key]["c"], state[key]["c"])
-        _res_block(out, f"{name}.1", params[key]["r"], state[key]["r"])
+        _conv_layer(out, f"{name}.0", params[key]["c"], sub(key, "c"))
+        _res_block(out, f"{name}.1", params[key]["r"], sub(key, "r"))
     out["classifier.weight"] = _t(params["classifier"]["w"])
     return out
+
+
+def _get(tree, keys):
+    for k in keys:
+        tree = tree[k]
+    return tree
+
+
+# optimizer -> (the optax state's class name, {torch.optim name: its field})
+_MOMENTS = {
+    "adam": ("ScaleByAdamState", {"exp_avg": "mu", "exp_avg_sq": "nu"}),
+    "sgd": ("TraceState", {"momentum_buffer": "trace"}),
+    "rmsprop": ("RMSpropState", {"square_avg": "square_avg", "momentum_buffer": "momentum"}),
+    "adabound": ("AdaBoundState", {"exp_avg": "exp_avg", "exp_avg_sq": "exp_avg_sq"}),
+}
+
+
+def _find_state(tree, cls_name):
+    """The first node of an optax state tree (tuples of NamedTuples) whose
+    class is `cls_name`, or None."""
+    if type(tree).__name__ == cls_name:
+        return tree
+    if isinstance(tree, tuple):
+        for sub in tree:
+            found = _find_state(sub, cls_name)
+            if found is not None:
+                return found
+    return None
+
+
+def optimizer_state_dict(optimizer: str, opt_state, step: int) -> Dict[str, Dict[str, Any]]:
+    """The optax state of `make_optimizer(optimizer, ...)` -> {RecNet
+    parameter key: torch.optim state of that parameter}. `step` is the
+    count of updates taken. SGD without momentum has no state ({})."""
+    name = optimizer.lower()
+    if name not in _MOMENTS:
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    cls_name, fields = _MOMENTS[name]
+    node = _find_state(opt_state, cls_name)
+    if node is None:
+        if name == "sgd":
+            return {}
+        raise ValueError(f"{optimizer}: no {cls_name} in the optimizer state")
+    out: Dict[str, Dict[str, Any]] = {}
+    for tname, jname in fields.items():
+        for key, v in recnet_state_dict(getattr(node, jname)).items():
+            out.setdefault(key, {})[tname] = v
+    for st in out.values():
+        if name in ("adam", "rmsprop"):  # torch.optim keeps a float32 step tensor
+            st["step"] = torch.tensor(float(step), dtype=torch.float32)
+        elif name == "adabound":
+            st["step"] = int(step)
+    return out
+
+
+def train_state_dicts(params, model_state, opt_state, step, optimizer: str):
+    """A JAX TrainState's trees -> (RecNet state dict, the optimizer's
+    per-parameter state, the update count) for
+    `ffrnet_torch.training.trainer.load_train_state`."""
+    step = int(np.asarray(step))
+    return (recnet_state_dict(params, model_state),
+            optimizer_state_dict(optimizer, opt_state, step), step)

@@ -9,7 +9,10 @@ JAX package (eval-mode BN with an fp32 rsqrt, for example).
   * ConvLayer = [2x nearest upsample] -> ReflectionPad(k//2) -> conv (stride 2
     iff scale == 'down', bias iff norm in {pixel, none}) -> norm -> relu.
   * ReluLayer: relu / leakyrelu(0.2) / prelu (per channel) / selu / none.
-  * NormLayer: bn / in / gn(32) / pixel / layer / none.
+  * NormLayer: bn / in / gn(32) / pixel / layer / none. A bn layer follows
+    `module.training`: in train mode it normalizes with the batch's
+    statistics and moves its running stats in place (momentum 0.1), unless
+    `running_stats_frozen` holds them; in eval mode it uses them.
   * ResidualBlock: two ConvLayers plus the identity.
 
 `init_*` functions fill a module as the JAX package's init does (kaiming
@@ -18,6 +21,8 @@ from an explicit `torch.Generator`.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +49,7 @@ class NormLayer(nn.Module):
         if norm_type not in NORM_TYPES:
             raise ValueError(f"Norm type {norm_type} not supported.")
         self.norm_type = norm_type
+        self.update_stats = True  # train mode: write the new running stats
         if norm_type == "bn":
             self.norm = nn.BatchNorm2d(channels)
         elif norm_type in ("in", "gn", "layer"):
@@ -53,8 +59,15 @@ class NormLayer(nn.Module):
         t = self.norm_type
         if t == "bn":
             m = self.norm
-            return ops.batch_norm(x, m.weight, m.bias, m.running_mean,
-                                  m.running_var)
+            if not self.training:
+                return ops.batch_norm(x, m.weight, m.bias, m.running_mean,
+                                      m.running_var)
+            y, mean, var = ops.batch_norm_train(x, m.weight, m.bias,
+                                                m.running_mean, m.running_var)
+            if self.update_stats:
+                m.running_mean.copy_(mean)
+                m.running_var.copy_(var)
+            return y
         if t == "in":
             return ops.instance_norm(x, self.norm.weight, self.norm.bias)
         if t == "gn":
@@ -64,6 +77,23 @@ class NormLayer(nn.Module):
         if t == "layer":
             return ops.layer_norm(x, self.norm.weight, self.norm.bias)
         return x
+
+
+@contextlib.contextmanager
+def running_stats_frozen(module: nn.Module):
+    """Train-mode BNs inside `module` compute their batch statistics but
+    leave their running stats as they are. A checkpointed forward runs
+    again in the backward pass; under this context the recompute does not
+    move the running stats a second time."""
+    norms = [m for m in module.modules() if isinstance(m, NormLayer)]
+    saved = [m.update_stats for m in norms]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, u in zip(norms, saved):
+            m.update_stats = u
 
 
 class ReluLayer(nn.Module):

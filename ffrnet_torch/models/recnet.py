@@ -1,8 +1,7 @@
-"""RecNet inference: spatial + channel feature rectification (FFR-Net head), NCHW.
+"""RecNet: spatial + channel feature rectification (FFR-Net head), NCHW.
 
-Counterpart of ffrnet_tpu/models/recnet.py (inference only; the margin heads'
-logits and RecNetTrainOut wait for the training port). Module names are the
-reference's state-dict keys (`Conv4Space`, `Conv4Channel`,
+Counterpart of ffrnet_tpu/models/recnet.py, inference and training. Module
+names are the reference's state-dict keys (`Conv4Space`, `Conv4Channel`,
 `ChannelFlipMerge`, `Conv4Merge`, `classifier`).
 
   1. self-similarity of the 7x7x512 map -> ss_space (N,49,49), ss_channel
@@ -12,6 +11,10 @@ reference's state-dict keys (`Conv4Space`, `Conv4Channel`,
   5. width flip of feat_channel, concat, ChannelFlipMerge
   6. Conv4Merge on cat(feat_space, feat_channel_m, featmap) -> feat_new
   7. 7x7 mean -> feat_new_v (N,512)
+  8. with a label: the CosFace head's logits and cosines (`RecNetTrainOut`)
+
+The BNs follow `module.training` (batch statistics and running-stat
+updates in train mode, `layers.NormLayer`).
 
 Config names, JAX -> port:
 
@@ -19,15 +22,18 @@ Config names, JAX -> port:
                 'pallas' -> 'kernel' the fused self-similarity wrapper; as
                                     in JAX it forces the materialized
                                     channel path
-  c4c_impl      'factored' / 'materialized' (unchanged)
-  channel_impl  'xla' -> 'plain'    factored: the channel branch's plain
-                                    PyTorch version (channel_branch_plain);
-                                    materialized: Conv4Channel's linears
-                'pallas_fused' -> 'fused'  the fused channel-branch wrapper
-                                    (factored path only)
-  remat_channel training only; the port has no training yet, so only
-                False is taken
-  s, m          the CosFace head's scale and margin, read by training only
+  c4c_impl      'factored' / 'materialized' (unchanged): the factored path
+                never builds the (N, C, C) Gram (`_conv4channel_factored`)
+  channel_impl  'xla' -> 'plain'    Conv4Channel as PyTorch ops, M_channel
+                                    then M_channel X
+                'pallas_fused' -> 'fused'  the fused channel-branch wrapper,
+                                    which keeps M_channel on chip: factored
+                                    path, eval mode and no label only (the
+                                    train output holds M_channel)
+  remat_channel in training, torch.utils.checkpoint around the channel
+                branch (M_channel and its intermediates recomputed in the
+                backward pass instead of stored)
+  s, m          the CosFace head's scale and margin
 
 The port's default is the fused configuration (c4c_impl='factored',
 channel_impl='fused'). Whether a wrapper runs its CUDA kernel or its plain
@@ -36,15 +42,18 @@ twin is decided by the tensor's device inside the wrapper, never here.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ffrnet_torch.models import layers as L
 from ffrnet_torch.ops import nn as ops
-from ffrnet_torch.ops.kernels.channel_branch import (_collapse, channel_branch,
-                                                     channel_branch_plain)
+from ffrnet_torch.ops.kernels.channel_branch import _collapse, channel_branch
 from ffrnet_torch.ops.similarity import cosine_sim, self_similarity
 
 
@@ -60,12 +69,9 @@ class RecNetConfig:
     ss_impl: str = "plain"        # 'plain' | 'kernel'
     c4c_impl: str = "factored"    # 'factored' | 'materialized'
     channel_impl: str = "fused"   # 'plain' | 'fused'
-    remat_channel: bool = False   # training only
+    remat_channel: bool = False   # checkpoint the channel branch in training
 
     def __post_init__(self):
-        if self.remat_channel:
-            raise ValueError("remat_channel applies to training, which the port "
-                             "does not run yet")
         if self.ss_impl not in ("plain", "kernel"):
             raise ValueError(f"ss_impl must be 'plain' or 'kernel', got {self.ss_impl!r}")
         if self.c4c_impl not in ("factored", "materialized"):
@@ -86,9 +92,21 @@ SS_KERNEL_CONFIG = RecNetConfig(ss_impl="kernel", c4c_impl="materialized",
                                 channel_impl="plain")
 
 
+class RecNetTrainOut(NamedTuple):
+    """Training-mode outputs (ffrnet_tpu/models/recnet.py:74-85), NCHW where
+    the JAX package's maps are NHWC."""
+    feat_new_v: torch.Tensor    # (N, C) rectified embedding (not normalized)
+    logits: torch.Tensor        # (N, classes) margin logits
+    cosine: torch.Tensor        # (N, classes) raw cosines
+    m_space: torch.Tensor       # (N, HW, HW)
+    m_channel: torch.Tensor     # (N, C, C)
+    feat_space: torch.Tensor    # (N, C, H, W) raw spatial-rectified map
+    feat_channel: torch.Tensor  # (N, C, H, W) after ChannelFlipMerge
+
+
 class CosFaceHead(nn.Module):
-    """Holds the AddMarginProduct weight (num_classes, C) so that released
-    checkpoints load; its logits belong to the training port."""
+    """The AddMarginProduct weight (num_classes, C); `add_margin_logits`
+    gives its logits."""
 
     def __init__(self, num_classes: int, channels: int):
         super().__init__()
@@ -141,8 +159,16 @@ class RecNet(nn.Module):
             tree[f"prelu{i}"] = {"slope": self.Conv4Channel[idx].func.weight}
         return tree
 
-    def forward(self, featmap):
-        """featmap (N, C, H, W) -> (feat_new_v (N, C), feat_new (N, C, H, W))."""
+    def train(self, mode: bool = True) -> "RecNet":
+        """Entering train mode drops the collapsed channel weights: they
+        would be stale after an optimizer step."""
+        if mode:
+            self.channel_weights = None
+        return super().train(mode)
+
+    def forward(self, featmap, label=None):
+        """featmap (N, C, H, W) -> (feat_new_v (N, C), feat_new (N, C, H, W));
+        with a label (N,) -> RecNetTrainOut."""
         cfg = self.cfg
         n, c, h, w = featmap.shape
         hw = h * w
@@ -162,16 +188,20 @@ class RecNet(nn.Module):
         m_space = self.Conv4Space(space_cat).reshape(n, hw, hw)
 
         # channel attention -> feat_channel (N, C, HW) = M_channel X
-        if factored:
+        tree = self.c4c_params()
+        if (factored and cfg.channel_impl == "fused" and label is None
+                and not self.training):
             weights = self.channel_weights
             if weights is None:
-                weights = _collapse(self.c4c_params())
-            branch = channel_branch if cfg.channel_impl == "fused" else channel_branch_plain
-            feat_channel = branch(flat, weights)
+                weights = _collapse(tree)
+            m_channel, feat_channel = None, channel_branch(flat, weights)
         else:
-            m_channel = _conv4channel(self.c4c_params(),
-                                      torch.cat([flat, ss_channel], dim=2))
-            feat_channel = torch.bmm(m_channel, flat)
+            first = flat if factored else torch.cat([flat, ss_channel], dim=2)
+            if cfg.remat_channel and self.training:
+                m_channel, feat_channel = checkpoint(
+                    _channel_attention, tree, first, flat, factored, use_reentrant=False)
+            else:
+                m_channel, feat_channel = _channel_attention(tree, first, flat, factored)
 
         # spatial rectification: feat_space[c, p] = sum_q X[c, q] M_space[q, p]
         feat_space = torch.bmm(flat, m_space).reshape(n, c, h, w)
@@ -182,11 +212,122 @@ class RecNet(nn.Module):
         feat_channel_m = self.ChannelFlipMerge(fc_cat)
         merged = torch.cat([feat_space, feat_channel_m, featmap], dim=1)
         feat_new = self.Conv4Merge(merged)
-        return feat_new.mean(dim=(2, 3)), feat_new
+        feat_new_v = feat_new.mean(dim=(2, 3))
+        if label is None:
+            return feat_new_v, feat_new
+        logits, cosine = add_margin_logits(self.classifier.weight, feat_new_v, label,
+                                           s=cfg.s, m=cfg.m, num_classes=cfg.num_classes)
+        return RecNetTrainOut(feat_new_v, logits, cosine, m_space, m_channel,
+                              feat_space, feat_channel_m)
+
+
+def _pad_rows_masked(w, num_classes):
+    """(w with each padded row replaced by ones, valid-class mask or None).
+    Normalizing an all-zero padded row would put 0/0 into the backward pass,
+    which a zero cotangent does not cancel; the constant row's cosines are
+    masked, and torch.where gives the padded rows exactly zero gradient."""
+    total = w.shape[0]
+    if total <= num_classes:
+        return w, None
+    valid = torch.arange(total, device=w.device) < num_classes
+    return torch.where(valid[:, None], w, torch.ones((), dtype=w.dtype, device=w.device)), valid
+
+
+def _mask_padded(logits, cosine, valid):
+    """Padded classes: logits -1e5 (no softmax mass), cosines -2 (never the
+    argmax)."""
+    if valid is None:
+        return logits, cosine
+    return (torch.where(valid, logits, torch.full((), -1e5, dtype=logits.dtype,
+                                                  device=logits.device)),
+            torch.where(valid, cosine, torch.full((), -2.0, dtype=cosine.dtype,
+                                                  device=cosine.device)))
+
+
+def _one_hot(label, like):
+    """One-hot rows shaped and typed like `like`; a scatter, since
+    F.one_hot checks the labels' range on the host (a device sync)."""
+    return torch.zeros_like(like).scatter_(1, label[:, None].long(), 1.0)
+
+
+def _cosines(w, feat):
+    return ops.l2_normalize(feat, axis=1) @ ops.l2_normalize(w, axis=1).T
+
+
+def add_margin_logits(w, feat, label, *, s: float, m: float, num_classes: int):
+    """CosFace / AddMarginProduct (ffrnet_tpu/models/recnet.py:148-185):
+    w (classes, C), feat (N, C), label (N,) -> (logits, cosine), both
+    (N, w.shape[0]). The margin is taken off the target class only and
+    the logits are scaled by s. Rows of w past `num_classes` are padding
+    (`_pad_rows_masked`, `_mask_padded`)."""
+    w, valid = _pad_rows_masked(w, num_classes)
+    cosine = _cosines(w, feat)
+    one_hot = _one_hot(label, cosine)
+    logits = s * (cosine - m * one_hot)
+    return _mask_padded(logits, cosine, valid)
+
+
+def arc_margin_logits(w, feat, label, *, s: float = 30.0, m: float = 0.50,
+                      easy_margin: bool = False, num_classes: int = 10575):
+    """ArcFace / ArcMarginProduct (ffrnet_tpu/models/recnet.py:188-220), with
+    the padded-class contract of add_margin_logits."""
+    w, valid = _pad_rows_masked(w, num_classes)
+    cosine = _cosines(w, feat)
+    sine = torch.sqrt(torch.clamp(1.0 - cosine.square(), 0.0, 1.0))
+    phi = cosine * math.cos(m) - sine * math.sin(m)
+    if easy_margin:
+        phi = torch.where(cosine > 0, phi, cosine)
+    else:
+        phi = torch.where(cosine > math.cos(math.pi - m), phi,
+                          cosine - math.sin(math.pi - m) * m)
+    one_hot = _one_hot(label, cosine)
+    logits = s * (one_hot * phi + (1.0 - one_hot) * cosine)
+    return _mask_padded(logits, cosine, valid)
+
+
+def _channel_attention(tree, first, flat, factored):
+    """(M_channel (N, C, C), M_channel X (N, C, HW)) from the Conv4Channel
+    tree; `first` is flat on the factored path, cat(flat, ss_channel) on
+    the materialized one."""
+    m_channel = (_conv4channel_factored(tree, first) if factored
+                 else _conv4channel(tree, first))
+    return m_channel, torch.bmm(m_channel, flat)
 
 
 def _linear(p, x):
     return torch.nn.functional.linear(x, p["w"], p.get("b"))
+
+
+def _conv4channel_factored(tree, flat, *, eps: float = 1e-12):
+    """_conv4channel on cat(flat, ss_channel) without the (N, C, C) Gram
+    (ffrnet_tpu/models/recnet.py:259-317): with lin0's weight split into the
+    columns that meet flat (w1f) and those that meet the Gram (w1s),
+    ss_channel w1s^T = ghat (ghat^T w1s^T), ghat the L2-normalized rows; and
+    each (lin1, lin2), (lin3, lin4) pair, with no nonlinearity between them,
+    collapses to one (32, 32) affine. The products the JAX package takes
+    with preferred_element_type=float32 are taken in fp32 here and cast
+    back at the same points."""
+    f32 = torch.float32
+    w1, b1 = tree["lin0"]["w"], tree["lin0"].get("b")
+    q = flat.shape[2]
+    w1f, w1s = w1[:, :q], w1[:, q:]
+    ghat = ops.l2_normalize(flat, axis=2, eps=eps)
+    h = flat.to(f32) @ w1f.to(f32).T                                # (N, C, 32)
+    t = torch.matmul(w1s.to(f32), ghat.to(f32)).to(flat.dtype)      # (N, 32, HW)
+    h = (h + ghat.to(f32) @ t.to(f32).transpose(1, 2)).to(flat.dtype)
+    if b1 is not None:
+        h = h + b1
+    h = ops.prelu(h, tree["prelu0"]["slope"], axis=1)
+    for i in (1, 2):
+        pa, pb = tree[f"lin{2 * i - 1}"], tree[f"lin{2 * i}"]
+        wc = (pb["w"].to(f32) @ pa["w"].to(f32)).to(h.dtype)
+        ba, bc = pa.get("b"), pb.get("b")
+        if ba is not None:
+            bab = (pb["w"].to(f32) @ ba.to(f32)).to(h.dtype)
+            bc = bab if bc is None else bab + bc
+        h = F.linear(h, wc, bc)
+        h = ops.prelu(h, tree[f"prelu{i}"]["slope"], axis=1)
+    return torch.sigmoid(_linear(tree["lin5"], h))
 
 
 def _conv4channel(tree, x):
@@ -219,7 +360,7 @@ def init_recnet(model: RecNet, generator: torch.Generator) -> None:
 
 def build_recnet(cfg: RecNetConfig = RecNetConfig(), *, generator=None,
                  device="cpu") -> RecNet:
-    """An eval-mode RecNet on `device`, filled from `generator` (a CPU
+    """An eval-mode RecNet on `device` (`.train()` for training), filled from `generator` (a CPU
     torch.Generator), or left for load_state_dict when None."""
     with torch.device("meta"):
         model = RecNet(cfg)

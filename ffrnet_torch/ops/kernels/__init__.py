@@ -2,7 +2,10 @@
 
 Each wrapper takes its plain version only for a tensor on the CPU; for a
 CUDA tensor it launches its kernel or raises. Each keeps a launch count
-(`wrapper.launches`) that only a kernel launch increments.
+(`wrapper.launches`) that only a kernel launch increments. se_gating,
+self_similarity and channel_branch are `torch.autograd.Function`s whose
+backward is the VJP of the plain version (`_autograd.py`); the backward
+launches no kernel.
 """
 
 from ffrnet_torch.ops.kernels.channel_branch import channel_branch

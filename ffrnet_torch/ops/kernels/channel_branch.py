@@ -15,6 +15,12 @@ Bound at C=512, HW=49, N=256, fp32: 0.066 ms (the products as 3xTF32 at
 
 Output layout: (N, C, HW), which is NCHW. The JAX kernel returns the
 transpose, (N, HW, C).
+
+The wrapper is differentiable (`_autograd.KernelFunction`, the Pallas
+kernel's custom VJP, ffrnet_tpu/ops/pallas/channel_branch.py:150-168): its
+backward is the VJP of the plain twin at the saved flat and `_collapse`
+operands, and `_collapse` is PyTorch ops, so the gradient reaches the
+Conv4Channel weights too.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ffrnet_torch.ops.kernels import _build
+from ffrnet_torch.ops.kernels._autograd import KernelFunction
 
 _EPS = 1e-12
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -107,11 +114,23 @@ def channel_branch_plain(flat, weights):
 
 def channel_branch(flat, weights):
     """Fused channel branch of a (N, C, HW) map: the plain version on the
-    CPU, the kernel on a CUDA tensor. `weights` come from `_collapse`."""
+    CPU, the kernel on a CUDA tensor. `weights` come from `_collapse`; the
+    gradient (to flat and to each weight) is the plain version's."""
     if flat.device.type == "cpu":
-        return channel_branch_plain(flat, weights)
-    if flat.device.type != "cuda":
+        fwd = _plain
+    elif flat.device.type == "cuda":
+        fwd = _launch
+    else:
         raise ValueError(f"channel_branch: unsupported device {flat.device}")
+    return KernelFunction.apply(fwd, _plain, flat, *weights)
+
+
+def _plain(flat, *weights):
+    return channel_branch_plain(flat, weights)
+
+
+def _launch(flat, *weights):
+    """The checks, then one launch, on CUDA tensors."""
     n, c, hw = flat.shape
     if flat.dtype not in _DTYPES:
         raise TypeError(f"channel_branch: float32 or bfloat16, got {flat.dtype}")

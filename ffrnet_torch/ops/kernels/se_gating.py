@@ -5,6 +5,10 @@ source note gives its bound (bytes: 3.65 GB per IR-SE50 forward at N=256
 in fp32) and its design: one thread-block-cluster launch per gate, a
 cluster of K CTAs holding each sample's map in shared memory, so that x is
 read once and written once. `_se_plan` picks K.
+
+The wrapper is differentiable (`_autograd.KernelFunction`, the Pallas
+kernel's custom VJP, ffrnet_tpu/ops/pallas/se_gating.py:71-86): its
+backward is the VJP of the plain twin at the saved x, w1 and w2.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import ctypes
 import torch
 
 from ffrnet_torch.ops.kernels import _build
+from ffrnet_torch.ops.kernels._autograd import KernelFunction
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -105,11 +110,18 @@ def _launch(x, w1, w2, plan):
 
 def se_gating(x, w1, w2):
     """SE gate of an NCHW map: the plain version on the CPU, the kernel on
-    a CUDA tensor."""
+    a CUDA tensor; the gradient is the plain version's."""
     if x.device.type == "cpu":
-        return se_gating_plain(x, w1, w2)
-    if x.device.type != "cuda":
+        fwd = se_gating_plain
+    elif x.device.type == "cuda":
+        fwd = _checked_launch
+    else:
         raise ValueError(f"se_gating: unsupported device {x.device}")
+    return KernelFunction.apply(fwd, se_gating_plain, x, w1, w2)
+
+
+def _checked_launch(x, w1, w2):
+    """The checks, then one launch, on CUDA tensors."""
     n, c, h, w = x.shape
     r = w1.shape[0]
     if x.dtype not in _DTYPES or w1.dtype != x.dtype or w2.dtype != x.dtype:

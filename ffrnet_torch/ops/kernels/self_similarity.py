@@ -11,6 +11,12 @@ it). The kernel is one launch for both Grams: one work item per sample
 for ss_space, and one per upper-triangle 128x128 tile pair of
 ss_channel, each stored as computed and transposed, so the output is
 exactly symmetric (see the source note).
+
+The wrapper is differentiable (`_SelfSimilarity`, the Pallas kernel's
+custom VJP, ffrnet_tpu/ops/pallas/self_similarity.py:86-103): its backward
+is the VJP of the plain twin at the saved input, of one Gram's half where
+only one was read. The kernel computes both Grams even where only one is
+read, as the Pallas kernel does.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from ffrnet_torch.ops.kernels import _build
+from ffrnet_torch.ops.kernels._autograd import plain_vjp
 
 _EPS = 1e-12
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -87,25 +94,63 @@ def self_similarity_fused_plain(x):
     """x (N, C, H, W) -> (ss_space (N, HW, HW), ss_channel (N, C, C)):
     both Grams in fp32, scaled by the outer product of the rows' inverse
     norms 1/max(||.||, 1e-12), cast to x's dtype (the Pallas kernel's math)."""
+    return _ss_space_plain(x), _ss_channel_plain(x)
+
+
+def _ss_space_plain(x):
     n, c, h, w = x.shape
     xf = x.reshape(n, c, h * w).float()          # rows = channels
     gp = torch.bmm(xf.transpose(1, 2), xf)       # (N, HW, HW)
+    inv_r = 1.0 / torch.clamp_min(torch.sqrt((xf * xf).sum(dim=1)), _EPS)  # (N, HW)
+    return (gp * inv_r[:, :, None] * inv_r[:, None, :]).to(x.dtype)
+
+
+def _ss_channel_plain(x):
+    n, c, h, w = x.shape
+    xf = x.reshape(n, c, h * w).float()
     gc = torch.bmm(xf, xf.transpose(1, 2))       # (N, C, C)
-    sq = xf * xf
-    inv_r = 1.0 / torch.clamp_min(torch.sqrt(sq.sum(dim=1)), _EPS)  # (N, HW)
-    inv_s = 1.0 / torch.clamp_min(torch.sqrt(sq.sum(dim=2)), _EPS)  # (N, C)
-    ss_space = gp * inv_r[:, :, None] * inv_r[:, None, :]
-    ss_channel = gc * inv_s[:, :, None] * inv_s[:, None, :]
-    return ss_space.to(x.dtype), ss_channel.to(x.dtype)
+    inv_s = 1.0 / torch.clamp_min(torch.sqrt((xf * xf).sum(dim=2)), _EPS)  # (N, C)
+    return (gc * inv_s[:, :, None] * inv_s[:, None, :]).to(x.dtype)
 
 
 def self_similarity_fused(x):
     """Both self-similarity Grams of an NCHW map: the plain version on the
-    CPU, the kernel on a CUDA tensor."""
+    CPU, the kernel on a CUDA tensor; the gradient is the plain version's."""
     if x.device.type == "cpu":
-        return self_similarity_fused_plain(x)
-    if x.device.type != "cuda":
+        fwd = self_similarity_fused_plain
+    elif x.device.type == "cuda":
+        fwd = _launch
+    else:
         raise ValueError(f"self_similarity: unsupported device {x.device}")
+    return _SelfSimilarity.apply(x, fwd)
+
+
+class _SelfSimilarity(torch.autograd.Function):
+    """forward: `fwd(x)`, the kernel or the plain version; backward: the VJP
+    of the plain version at the saved x. Where one Gram was not read (its
+    grad is None: the loss reads only ss_space of the rectified spatial
+    maps and only ss_channel of the channel maps), only the other Gram is
+    recomputed."""
+
+    @staticmethod
+    def forward(ctx, x, fwd):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x)
+        return fwd(x)
+
+    @staticmethod
+    def backward(ctx, g_space, g_channel):
+        read = (g_space is not None, g_channel is not None)
+        if not any(read) or not ctx.needs_input_grad[0]:
+            return None, None
+        plain = {(True, True): self_similarity_fused_plain, (True, False): _ss_space_plain,
+                 (False, True): _ss_channel_plain}[read]
+        grads = tuple(g for g in (g_space, g_channel) if g is not None)
+        return plain_vjp(plain, ctx.saved_tensors, grads, (True,))[0], None
+
+
+def _launch(x):
+    """One launch of the kernel on a CUDA tensor, after the checks."""
     n, c, h, w = x.shape
     hw = h * w
     if x.dtype not in _DTYPES:

@@ -65,6 +65,32 @@ def batch_norm(x, scale, bias, running_mean, running_var, *, axis: int = 1,
         + bias.to(x.dtype).reshape(shape)
 
 
+def batch_norm_train(x, scale, bias, running_mean, running_var, *, axis: int = 1,
+                     momentum: float = 0.1, eps: float = 1e-5):
+    """Train-mode BatchNorm (ffrnet_tpu/ops/nn.py:114-150) -> (y, new_mean,
+    new_var). The batch statistics are taken in fp32 whatever x's type; y
+    is normalized with the biased variance, and the running variance moves
+    toward the unbiased one with `momentum`. The new running stats are
+    detached and keep the running stats' dtype; `num_batches_tracked` plays
+    no part (never the cumulative-average mode)."""
+    shape = _chan_shape(x, axis)
+    dims = tuple(d for d in range(x.ndim) if d != axis)
+    xf = x.float()
+    mean = xf.mean(dim=dims)
+    var = (xf - mean.reshape(shape)).square().mean(dim=dims)
+    n = x.numel() // x.shape[axis]
+    with torch.no_grad():
+        unbiased = var * (n / max(n - 1, 1))
+        new_mean = ((1 - momentum) * running_mean.float()
+                    + momentum * mean).to(running_mean.dtype)
+        new_var = ((1 - momentum) * running_var.float()
+                   + momentum * unbiased).to(running_var.dtype)
+    inv = torch.rsqrt(var + eps).to(x.dtype)
+    y = (x - mean.to(x.dtype).reshape(shape)) * (inv * scale.to(x.dtype)).reshape(shape) \
+        + bias.to(x.dtype).reshape(shape)
+    return y, new_mean, new_var
+
+
 def instance_norm(x, scale, bias, *, eps: float = 1e-5):
     """InstanceNorm2d(affine=True) on NCHW (per-sample, per-channel)."""
     mean = x.mean(dim=(2, 3), keepdim=True)
@@ -152,6 +178,16 @@ def l2_norm_div(x, axis=-1):
     """The encoder's final `l2_norm`: x / ||x|| with no epsilon."""
     norm = torch.sqrt(torch.sum(x * x, dim=axis, keepdim=True))
     return x / norm
+
+
+def tree_cast_floats(tree: dict, dtype):
+    """A dict of tensors with its floating tensors cast to `dtype` (the
+    mixed-precision compute copy, ffrnet_tpu/ops/nn.py:265); integer
+    tensors pass through, and so does the whole dict when dtype is None.
+    The casts are differentiable, so gradients reach the originals."""
+    if dtype is None:
+        return tree
+    return {k: v.to(dtype) if v.is_floating_point() else v for k, v in tree.items()}
 
 
 def images_to_unit_range(x):

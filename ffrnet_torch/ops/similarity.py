@@ -32,7 +32,8 @@ def self_similarity(x_nchw, *, impl: str = "plain"):
 
     impl="plain" normalizes the rows and multiplies (the JAX package's XLA
     path); impl="kernel" goes through the fused self-similarity wrapper,
-    which launches the CUDA kernel on a CUDA tensor.
+    which launches the CUDA kernel on a CUDA tensor and differentiates as
+    its plain version.
     """
     if impl == "kernel":
         return self_similarity_fused(x_nchw)

@@ -6,6 +6,8 @@ skips. It imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -193,3 +195,73 @@ def test_cuda_warps_match_plain(cuda, dtype):
             torch.testing.assert_close(
                 got.float(),
                 warp_affine_band_plain(imgs, mats, out_hw=out_hw, crop_w=crop_w).float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_gradients_match_plain(cuda, dtype):
+    """Each wrapper's Function (kernel forward, the twin's VJP backward) vs
+    autograd through the plain twin: the forward within TOL, the gradients
+    to the bit, since the backward recomputes the twin from the same
+    inputs."""
+    g = torch.Generator().manual_seed(6)
+    dt = TDT[dtype]
+    weights = cb_weights(9, True, 512, 49, cuda)
+    # channel_branch's fp32 forward: 512-term sums, 3xTF32 (check_channel_branch)
+    cb_tol = TOL[dtype] if dtype == "bfloat16" else dict(atol=1e-4, rtol=1e-4)
+    cases = [((torch.randn(3, 512, 7, 7, generator=g).to(cuda, dt),),
+              self_similarity_fused, self_similarity_fused_plain, TOL[dtype]),
+             ((torch.randn(3, 512, 49, generator=g).to(cuda, dt), *weights),
+              lambda f, *w: channel_branch(f, w), lambda f, *w: channel_branch_plain(f, w),
+              cb_tol)]
+    for h, c in ((56, 64), (28, 128), (14, 256), (7, 512)):
+        cases.append(((torch.randn(3, c, h, h, generator=g).to(cuda, dt),
+                       (0.2 * torch.randn(c // 16, c, generator=g)).to(cuda, dt),
+                       (0.2 * torch.randn(c, c // 16, generator=g)).to(cuda, dt)),
+                      se_gating, se_gating_plain, TOL[dtype]))
+    for args, kern, plain, tol in cases:
+        outs, grads = [], []
+        for fn in (kern, plain):
+            leaves = [a.detach().clone().requires_grad_() for a in args]
+            out = fn(*leaves)
+            out = out if isinstance(out, tuple) else (out,)
+            cot = [torch.randn(o.shape, generator=torch.Generator().manual_seed(7)).to(cuda, o.dtype)
+                   for o in out]
+            grads.append(torch.autograd.grad(out, leaves, cot))
+            outs.append(out)
+        for a, b in zip(*outs):
+            torch.testing.assert_close(a.float(), b.float(), **tol)
+        for a, b in zip(*grads):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_short_training_run(cuda):
+    """Five Adam steps of train_step (N=4, 16 classes, fp32) in both RecNet
+    configurations on the card: finite losses that fall on a repeated
+    batch, 24 SE launches per step, and 7 self-similarity launches per step
+    in SS_KERNEL_CONFIG (0 in the default)."""
+    from ffrnet_torch.models.irse import build_backbone
+    from ffrnet_torch.models.recnet import SS_KERNEL_CONFIG, RecNetConfig
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ffrnet_torch.training.trainer import TrainerConfig, create_train_state, train_step
+
+    enc = build_backbone(generator=torch.Generator().manual_seed(0), device=cuda)
+    g = torch.Generator().manual_seed(8)
+    batch = {"img_non": torch.randint(0, 256, (4, 112, 112, 3), generator=g, dtype=torch.uint8),
+             "img_ocl": torch.randint(0, 256, (4, 112, 112, 3), generator=g, dtype=torch.uint8),
+             "label": torch.tensor([0, 3, 7, 15])}
+    for rec, ss in ((RecNetConfig(num_classes=16), 0),
+                    (dataclasses.replace(SS_KERNEL_CONFIG, num_classes=16), 7)):
+        cfg = TrainerConfig(optimizer="adam", lr=1e-3, recnet=rec)
+        state = create_train_state(cfg, device=cuda)
+        losses = []
+        for _ in range(5):
+            reset_launch_counts()
+            state, m = train_step(enc, state, batch, cfg=cfg)
+            torch.cuda.synchronize()
+            c = launch_counts()
+            assert (c["se_gating"], c["self_similarity"], c["channel_branch"]) == (24, ss, 0)
+            losses.append(float(m["TotalLoss"]))
+        assert np.isfinite(losses).all() and losses[-1] < losses[0]
+        assert state.step == 5

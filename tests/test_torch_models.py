@@ -177,9 +177,20 @@ def test_recnet_collapsed_weights_cache(jax_recnet, channel_impl):
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
-def test_recnet_config_rejects_training_fields():
-    with pytest.raises(ValueError, match="remat_channel"):
-        t_recnet.RecNetConfig(remat_channel=True)
+def test_recnet_config_rejects_training_fields(jax_recnet):
+    """remat_channel, a training field, is taken now that the port trains;
+    it leaves the eval forward as it is. The implementation fields still
+    reject values they do not know."""
+    fm = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (1, 512, 7, 7)).astype(np.float32))
+    outs = []
+    for remat in (False, True):
+        model = _port_recnet(*jax_recnet, t_recnet.RecNetConfig(remat_channel=remat))
+        with torch.no_grad():
+            outs.append(model(fm)[1])
+    np.testing.assert_array_equal(outs[1].numpy(), outs[0].numpy())
+    with pytest.raises(ValueError, match="ss_impl"):
+        t_recnet.RecNetConfig(ss_impl="pallas")
 
 
 def test_golden_fixture_through_the_port(jax_encoder, jax_recnet):

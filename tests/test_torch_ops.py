@@ -166,6 +166,9 @@ def _load_conv_layer(module, params, state):
     "bn-prelu", "in-relu", "gn-leakyrelu", "pixel-selu", "layer-none", "none-prelu",
     "bn-prelu-down", "bn-prelu-up", "residual"])
 def test_layers_match_jax(kind):
+    """Eval mode (running stats) and, for the BN kinds, train mode (batch
+    statistics) vs the JAX layer with training False and True; a module
+    follows `module.training`, so each mode is set explicitly."""
     parts = kind.split("-")
     norm, relu = ("bn", "prelu") if kind == "residual" else parts[:2]
     scale = parts[2] if len(parts) > 2 else "none"
@@ -173,21 +176,26 @@ def test_layers_match_jax(kind):
     x = _rng(4).standard_normal((2, 6, 6, cin)).astype(np.float32)
     key = jax.random.PRNGKey(5)
     kw = {"norm_type": norm, "relu_type": relu}
-    if kind == "residual":
-        p, s = j_layers.init_residual_block(key, cin, cout, **kw)
-        want, _ = j_layers.apply_residual_block(p, s, jnp.asarray(x), **kw)
-        mod = t_layers.ResidualBlock(cin, **kw)
-        _load_conv_layer(mod.conv1, p["conv1"], s["conv1"])
-        _load_conv_layer(mod.conv2, p["conv2"], s["conv2"])
-    else:
-        p, s = j_layers.init_conv_layer(key, cin, cout, **kw)
-        want, _ = j_layers.apply_conv_layer(p, s, jnp.asarray(x), scale=scale, **kw)
-        mod = t_layers.ConvLayer(cin, cout, scale=scale, **kw)
-        _load_conv_layer(mod, p, s)
-    with torch.no_grad():
-        got = mod(_nhwc_to_nchw(x))
-    # fp32 convolutions with another summation order
-    np.testing.assert_allclose(_nchw_to_nhwc(got), np.asarray(want), atol=2e-5, rtol=2e-5)
+    for training in ((False, True) if norm == "bn" else (False,)):
+        if kind == "residual":
+            p, s = j_layers.init_residual_block(key, cin, cout, **kw)
+            want, _ = j_layers.apply_residual_block(p, s, jnp.asarray(x), training=training,
+                                                    **kw)
+            mod = t_layers.ResidualBlock(cin, **kw)
+            _load_conv_layer(mod.conv1, p["conv1"], s["conv1"])
+            _load_conv_layer(mod.conv2, p["conv2"], s["conv2"])
+        else:
+            p, s = j_layers.init_conv_layer(key, cin, cout, **kw)
+            want, _ = j_layers.apply_conv_layer(p, s, jnp.asarray(x), scale=scale,
+                                                training=training, **kw)
+            mod = t_layers.ConvLayer(cin, cout, scale=scale, **kw)
+            _load_conv_layer(mod, p, s)
+        mod.train(training)
+        with torch.no_grad():
+            got = mod(_nhwc_to_nchw(x))
+        # fp32 convolutions with another summation order
+        np.testing.assert_allclose(_nchw_to_nhwc(got), np.asarray(want), atol=2e-5, rtol=2e-5,
+                                   err_msg=f"training={training}")
 
 
 def test_import_leaves_jax_out():
@@ -196,7 +204,11 @@ def test_import_leaves_jax_out():
     code = ("import sys, ffrnet_torch, ffrnet_torch.api, ffrnet_torch.ops.kernels, "
             "ffrnet_torch.checkpoint.convert, ffrnet_torch.ops.align, "
             "ffrnet_torch.ops.kernels.warp, ffrnet_torch.tools.align_dataset, "
-            "ffrnet_torch.tools.mma_rate; "
+            "ffrnet_torch.tools.mma_rate, ffrnet_torch.training.trainer, "
+            "ffrnet_torch.training.losses, ffrnet_torch.training.optimizers, "
+            "ffrnet_torch.training.adabound, ffrnet_torch.training.schedules, "
+            "ffrnet_torch.data.datasets, ffrnet_torch.tools.bench_train, "
+            "ffrnet_torch.tools.profile_train; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'ffrnet_tpu')); print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
