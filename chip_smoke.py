@@ -45,6 +45,17 @@ exits non-zero without a result line:
               64, up to 300 steps); step ms and train imgs/s at N=128 in
               fp32 and bf16, train_step and train_step_from_features; the
               self_similarity Function's backward beside its forward
+  9. driver   python -m ffrnet_torch.train's main from files on disk: a
+              JPEG tree made here (64 identities x 4 faces with masked
+              twins, a CASIA list, 600 LFW pairs); an fp32 run (10575
+              classes, batch 64, 2 epochs = 8 steps, checkpoints and LFW
+              eval at ocl 0/1/2 every 4), its resume from 0000004 in a fresh
+              root, a bf16 --ss_impl pallas --cache_features 1 run, and
+              --phase test --report_roc 1 --save_wrong 1; the launches of
+              every driver step, cache build and eval batch, checked
+              exactly; the first eval batch's scores on the card against the
+              CPU; driver steps/s and DataTime share, eval pairs/s, cache
+              faces/s and checkpoint save ms
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit as nvidia-smi gives them, and the result line
@@ -1139,6 +1150,324 @@ def phase_train(model, dev, card):
     return counts
 
 
+# ------------------------------------------------------------------ phase 9
+
+DRIVER_IDS, DRIVER_PER_ID, DRIVER_PAIRS, DRIVER_BATCH, DRIVER_CLASSES = 64, 4, 600, 64, 10575
+# launches per driver call: a raw-image train_step (one 2N encoder pass), a
+# cached step (RecNet alone; self_similarity 2 forwards + 5 loss Grams in the
+# kernel configuration), a 2B eval batch (encoder + RecNet in eval)
+DRIVER_COUNTS = {
+    ("fused", "train_step"): {"se_gating": 24},
+    ("ss_kernel", "train_step_from_features"): {"self_similarity": 7},
+    ("fused", "eval"): {"se_gating": 24, "channel_branch": 1},
+    ("ss_kernel", "eval"): {"se_gating": 24, "self_similarity": 1},
+}
+
+
+def driver_tree(root):
+    """CASIA-like and LFW-like in one tree: 64 identities x 4 aligned
+    112x112 JPEGs, each with its masked twin (`_m`, a lower-face box set
+    dark), a CASIA list over all 256 and 600 LFW pairs (300 same, 300
+    different) over the same faces. Smooth per-identity templates, made
+    from seed 90."""
+    from PIL import Image
+
+    rng = np.random.default_rng(90)
+    lines = []
+    for i in range(DRIVER_IDS):
+        name = f"id_{i:03d}"
+        os.makedirs(os.path.join(root, name))
+        small = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
+        base = np.asarray(Image.fromarray(small).resize((112, 112), Image.BICUBIC), np.int16)
+        for k in range(1, DRIVER_PER_ID + 1):
+            img = np.clip(base + rng.integers(-12, 13, base.shape), 0, 255).astype(np.uint8)
+            stem = os.path.join(root, name, f"{name}_{k:04d}")
+            Image.fromarray(img).save(stem + ".jpg", quality=90)
+            img[60:100, 20:92] = 20
+            Image.fromarray(img).save(stem + "_m.jpg", quality=90)
+            lines.append(f"{name}/{name}_{k:04d}.jpg {i}\n")
+    with open(os.path.join(root, "list.txt"), "w") as f:
+        f.writelines(lines)
+    pairs = [f"10\t{DRIVER_PAIRS // 2}\n"]
+    for p in range(DRIVER_PAIRS // 2):
+        i, j = p % DRIVER_IDS, (p * 7 + 3) % DRIVER_IDS
+        a, b = 1 + p % DRIVER_PER_ID, 1 + (p + 1) % DRIVER_PER_ID
+        pairs.append(f"id_{i:03d}\t{a}\t{b}\n")
+        pairs.append(f"id_{i:03d}\t{a}\tid_{j if j != i else (i + 1) % DRIVER_IDS:03d}\t{b}\n")
+    with open(os.path.join(root, "pairs.txt"), "w") as f:
+        f.writelines(pairs)
+
+
+def driver_argv(tree, weight_root, *extra):
+    return ["--phase", "train", "--train_data", tree,
+            "--train_img_list", os.path.join(tree, "list.txt"), "--test_data", tree,
+            "--test_pair_list", os.path.join(tree, "pairs.txt"),
+            "--num_classes", str(DRIVER_CLASSES), "--batch_size", str(DRIVER_BATCH), "--total_epochs", "2", "--save_freq", "4",
+            "--eval_freq", "4",
+            "--print_freq", "4", "--optimizer", "Adam", "--lr", "1e-3", "--nThread", "8",
+            "--seed", "0", "--encoder_weights", "", "--weight_root", weight_root, *extra]
+
+
+class DriverProbe:
+    """Wraps the calls the driver (ffrnet_torch.train) makes through its
+    module's names, and records each one: a train step's and an eval batch's
+    kernel launches (the counts set to 0 just before the call and read
+    just after) and host milliseconds (synchronized), each checkpoint
+    write's milliseconds, the feature-cache build, and the driver Timer's
+    sections. `close()` puts the driver's own names back."""
+
+    def __init__(self):
+        import ffrnet_torch.train as T
+        from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+        from ffrnet_torch.training import feature_cache as FC
+
+        self.steps, self.evals, self.saves, self.sections, self.builds = [], [], [], [], []
+        self._undo = []
+        probe = self
+
+        def counted(fn, sink):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                sink.append(((time.perf_counter() - t) * 1e3, launch_counts()))
+                return out
+            return run
+
+        class RecordingTimer(T.Timer):
+            def update_time(self, name):
+                super().update_time(name)
+                probe.sections.append((name, self._sections[name]))
+
+        score_fn = T.make_pair_score_fn
+        self._set(T, "train_step", counted(T.train_step, self.steps))
+        self._set(T, "train_step_from_features", counted(T.train_step_from_features, self.steps))
+        self._set(T, "make_pair_score_fn", lambda enc, rec: counted(score_fn(enc, rec), self.evals))
+        self._set(T, "save_checkpoint", counted(T.save_checkpoint, self.saves))
+        self._set(T, "Timer", RecordingTimer)
+        self._set(FC, "build_feature_cache", counted(FC.build_feature_cache, self.builds))
+
+    def _set(self, mod, name, value):
+        self._undo.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, value)
+
+    def close(self):
+        for mod, name, value in reversed(self._undo):
+            setattr(mod, name, value)
+
+    def reset(self):
+        for sink in (self.steps, self.evals, self.saves, self.sections, self.builds):
+            sink.clear()
+
+    def step_stats(self):
+        """(steps/s from the median of the steps after the first, DataTime
+        share of the Timer's sections after the first step)."""
+        ms = [m for m, _ in self.steps[1:]]
+        first = next(i for i, (n, _) in enumerate(self.sections) if n == "Step")
+        later = self.sections[first + 1:]
+        data = sum(s for n, s in later if n == "DataTime")
+        return 1e3 / float(np.median(ms)), data / sum(s for _, s in later)
+
+
+def check_driver_counts(what, records, want):
+    expected = {k: want.get(k, 0) for k in KERNELS}
+    for i, (_, c) in enumerate(records):
+        if c != expected:
+            raise AssertionError(f"driver {what} #{i}: launches {c}, expected {expected}")
+    log("driver", f"{what}: {len(records)} calls, each {expected}")
+
+
+def read_scalars(opts):
+    with open(os.path.join(opts.log_dir, opts.save_weight_dir, "all_scalars.json")) as f:
+        return json.load(f)
+
+
+def driver_runs(probe, tree, root, card):
+    """The fp32 fused run, its resume, the bf16 cached ss_kernel run and
+    --phase test, through train.main; returns the fp32 run's options."""
+    import shutil
+
+    import ffrnet_torch.train as T
+    from ffrnet_torch.checkpoint.store import load_checkpoint
+    from ffrnet_torch.config import parse_args
+
+    # fp32, the fused configuration: 256 samples, batch 64, 2 epochs = 8 steps
+    argv = driver_argv(tree, os.path.join(root, "fp32"))
+    opts = parse_args(argv, make_dirs=False)
+    T.main(argv)
+    ckpts = sorted(n for n in os.listdir(opts.ckpt_dir) if n.endswith(".pth.gzip"))
+    if ckpts != ["0000004.pth.gzip", "0000008.pth.gzip", "latest.pth.gzip"]:
+        raise AssertionError(f"driver fp32: checkpoints {ckpts}")
+    meta = load_checkpoint(opts.ckpt_dir, "latest")[2]
+    if meta != {"epoch": 1, "iter": 8}:
+        raise AssertionError(f"driver fp32: latest meta {meta}")
+    scalars = read_scalars(opts)
+    for ocl in range(3):
+        iters = scalars.get(f"test_acc/ocl{ocl}/acc", {}).get("iters")
+        if iters != [4, 8]:
+            raise AssertionError(f"driver fp32: eval ocl{ocl} at iterations {iters}, not [4, 8]")
+    losses = scalars["train_values/TotalLoss"]["values"]
+    check_driver_counts("fp32 fused train_step", probe.steps, DRIVER_COUNTS["fused", "train_step"])
+    check_driver_counts("fp32 fused eval batch", probe.evals, DRIVER_COUNTS["fused", "eval"])
+    sps32, share32 = probe.step_stats()
+    save_ms = [m for m, _ in probe.saves]
+    log("driver", f"fp32 fused: 8 steps, TotalLoss {losses[0]:.3f} -> {losses[-1]:.3f}; "
+        f"checkpoints {ckpts}, latest {meta}; eval at iterations 4 and 8 over ocl 0/1/2; "
+        f"acc_new ocl0 {scalars['test_acc/ocl0/acc_new']['values']}")
+
+    # resume from the numbered checkpoint of iteration 4 in a fresh root
+    probe.reset()
+    argv_r = driver_argv(tree, os.path.join(root, "resume"), "--continue_train", "1",
+                         "--which_file", "0000004")
+    opts_r = parse_args(argv_r)
+    shutil.copy(os.path.join(opts.ckpt_dir, "0000004.pth.gzip"), opts_r.ckpt_dir)
+    T.main(argv_r)
+    meta_r = load_checkpoint(opts_r.ckpt_dir, "latest")[2]
+    if meta_r != {"epoch": 1, "iter": 8} or len(probe.steps) != 4:
+        raise AssertionError(f"driver resume: latest meta {meta_r}, {len(probe.steps)} steps")
+    check_driver_counts("fp32 resumed train_step", probe.steps,
+                        DRIVER_COUNTS["fused", "train_step"])
+    a, b = (load_checkpoint(o.ckpt_dir, "latest")[0] for o in (opts, opts_r))
+    diff = max((a[k].float() - b[k].float()).abs().max().item() for k in a)
+    log("driver", f"resumed from 0000004 in a fresh root: steps 5-8, latest {meta_r}; largest "
+        f"difference from the uninterrupted run {diff:.3e} (reported only: cuDNN's backward "
+        "is not deterministic)")
+
+    # bf16, the self-similarity kernel configuration, from the feature cache
+    probe.reset()
+    argv_c = driver_argv(tree, os.path.join(root, "bf16"), "--compute_dtype", "bf16",
+                         "--ss_impl", "pallas", "--cache_features", "1", "--eval_freq", "8")
+    opts_c = parse_args(argv_c, make_dirs=False)
+    T.main(argv_c)
+    with open(os.path.join(opts_c.ckpt_dir, "feature_cache", "meta.json")) as f:
+        cmeta = json.load(f)
+    if cmeta["n"] != DRIVER_IDS * DRIVER_PER_ID or cmeta["compute_dtype"] != "bf16":
+        raise AssertionError(f"driver bf16: feature cache meta {cmeta}")
+    (build_ms, build_counts), = probe.builds
+    check_driver_counts("bf16 feature-cache build", probe.builds,
+                        {"se_gating": 2 * 24 * -(-cmeta["n"] // DRIVER_BATCH)})
+    if load_checkpoint(opts_c.ckpt_dir, "latest")[2] != {"epoch": 1, "iter": 8}:
+        raise AssertionError("driver bf16: latest meta")
+    check_driver_counts("bf16 ss_kernel cached step", probe.steps,
+                        DRIVER_COUNTS["ss_kernel", "train_step_from_features"])
+    check_driver_counts("bf16 run's eval batch (fp32, ss_kernel)", probe.evals,
+                        DRIVER_COUNTS["ss_kernel", "eval"])
+    sps16, share16 = probe.step_stats()
+    faces = 4 * cmeta["n"]  # clean and masked, unflipped and flipped
+    log("driver", f"bf16 ss_kernel: cache of {cmeta['n']} samples built (24 se_gating launches "
+        "per encoder pass, 2 passes per batch), then 8 cached steps")
+
+    # --phase test on the fp32 checkpoint
+    probe.reset()
+    argv_t = [
+        "--phase", "test", "--test_data", tree, "--test_pair_list",
+        os.path.join(tree, "pairs.txt"), "--num_classes", str(DRIVER_CLASSES),
+        "--batch_size", str(DRIVER_BATCH),
+        "--nThread", "8", "--encoder_weights", "", "--weight_root", os.path.join(root, "fp32"),
+        "--report_roc", "1", "--save_wrong", "1"]
+    T.main(argv_t)
+    scalars = read_scalars(opts)
+    for ocl in range(3):
+        for kind in ("new", "raw"):
+            if f"test_roc_{kind}/ocl{ocl}/eer" not in scalars:
+                raise AssertionError(f"driver test: no ROC for ocl{ocl} {kind}")
+        for sub in ("wrong_images", "wrong_images_new"):
+            if not os.path.isdir(os.path.join(opts.ckpt_dir, f"{sub}_ocl{ocl}")):
+                raise AssertionError(f"driver test: no {sub}_ocl{ocl}")
+    check_driver_counts("--phase test eval batch", probe.evals, DRIVER_COUNTS["fused", "eval"])
+    log("driver", f"--phase test --report_roc 1 --save_wrong 1: ROC and wrong pairs for ocl 0/1/2; "
+        f"ocl0 eer {scalars['test_roc_new/ocl0/eer']['values'][0]:.4f} (rectified)")
+
+    n = DRIVER_BATCH
+    log("times", f"driver fp32 fused N={n}: {sps32:.2f} steps/s ({sps32 * n:.1f} train imgs/s), "
+        f"median of 7 steps after the first; DataTime share {share32:.1%} | {card}")
+    log("times", f"driver bf16 ss_kernel cached N={n}: {sps16:.2f} steps/s ({sps16 * n:.1f} train "
+        f"imgs/s); DataTime share {share16:.1%} | {card}")
+    log("times", f"feature-cache build: {cmeta['n']} samples in {build_ms / 1e3:.2f} s, "
+        f"{faces / build_ms * 1e3:.1f} faces encoded/s (bf16, clean + masked, both flips) | {card}")
+    log("times", f"checkpoint save (RecNet with {DRIVER_CLASSES} classes and its Adam state, "
+        ".pth.gzip): "
+        f"median {np.median(save_ms):.1f} ms of {len(save_ms)} (min {min(save_ms):.1f}, max "
+        f"{max(save_ms):.1f}) | {card}")
+    return opts
+
+
+def driver_card_vs_cpu(opts, dev, card):
+    """Eval pairs/s at ocl 0 on the card (and its loader and scoring
+    alone), the cache fingerprint's time, and the first eval batch's scores
+    on the card against the CPU, from the fp32 run's latest checkpoint."""
+    import ffrnet_torch.train as T
+    from ffrnet_torch.checkpoint.store import load_checkpoint
+    from ffrnet_torch.data.datasets import CasiaPairs
+    from ffrnet_torch.eval.runner import make_pair_score_fn
+    from ffrnet_torch.models.recnet import build_recnet
+    from ffrnet_torch.training import feature_cache as fc
+
+    sd = load_checkpoint(opts.ckpt_dir, "latest")[0]
+    models = {}
+    for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        rec = build_recnet(opts.trainer_config().recnet)
+        rec.load_state_dict(sd)
+        models[key] = (T.load_encoder(opts, where), rec.to(where).eval())
+    secs = []
+    for _ in range(2):
+        t = time.perf_counter()
+        T.eval_lfw(opts, *models["card"], 0)
+        secs.append(time.perf_counter() - t)
+    # the eval's split: the loader alone (decode, upload), then the scoring
+    # alone on batches already on the card
+    t = time.perf_counter()
+    on_card = list(T.make_eval_batches(opts, 0, opts.batch_size, device=dev)[0])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    score_fn = make_pair_score_fn(*models["card"])
+    t = time.perf_counter()
+    for b in on_card:
+        score_fn(b["img1"], b["img2"])
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t
+    t = time.perf_counter()
+    fc.cache_fingerprint(CasiaPairs(opts.train_data, opts.train_img_list, use_native=False),
+                         models["card"][0])
+    fingerprint_s = time.perf_counter() - t
+    batches, n_pairs = T.make_eval_batches(opts, 0, opts.batch_size)
+    batch = next(batches)
+    batches.close()
+    card_s = make_pair_score_fn(*models["card"])(batch["img1"], batch["img2"])
+    cpu_s = make_pair_score_fn(*models["cpu"])(batch["img1"], batch["img2"])
+    errs = [check_close(f"driver eval batch {name} scores card vs CPU", a.cpu(), b, *PATH_TOL)
+            for name, a, b in zip(("raw", "rectified"), card_s, cpu_s)]
+    log("driver", f"first eval batch ({len(batch['label'])} pairs, fp32 checkpoint) card vs CPU: "
+        f"raw scores max_abs_err {errs[0]:.3e}, rectified {errs[1]:.3e} (tol {PATH_TOL})")
+    log("times", f"eval ocl 0, {n_pairs} pairs from JPEG files (decode, upload, 2B encoder + "
+        f"RecNet, 10-fold sweep): {n_pairs / min(secs):.1f} pairs/s ({min(secs):.3f} s; "
+        f"runs {', '.join(f'{s:.3f}' for s in secs)}); split: the loader alone (decode, upload) "
+        f"{load_s:.3f} s, the scoring alone on batches on the card {score_s:.3f} s | {card}")
+    log("times", f"feature-cache fingerprint alone (the encoder's state dict to the host, hashed; "
+        f"the tree's sampled files): {fingerprint_s:.3f} s | {card}")
+
+
+def phase_driver(dev, card):
+    import tempfile
+
+    t0 = time.perf_counter()
+    probe = DriverProbe()
+    try:
+        with tempfile.TemporaryDirectory(prefix="ffrnet_driver_") as root:
+            tree = os.path.join(root, "faces")
+            driver_tree(tree)
+            log("driver", f"tree: {DRIVER_IDS} identities x {DRIVER_PER_ID} JPEGs with masked twins "
+                f"({time.perf_counter() - t0:.1f} s)")
+            opts = driver_runs(probe, tree, root, card)
+            probe.close()
+            driver_card_vs_cpu(opts, dev, card)
+    finally:
+        probe.close()
+    log("driver", f"all driver checks passed in {time.perf_counter() - t0:.1f} s")
+
+
 # ---------------------------------------------------------------------- main
 
 
@@ -1162,10 +1491,12 @@ def main():
     counts = phase_counts(main_counts, phase_ingest(fused, dev))
     times, bound, library = phase_times(models, dev, smi)
     phase_train(fused, dev, smi)
+    phase_driver(dev, smi)
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": counts[k],
          "max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],
-         "bound_ms": bound[k][0], "bound_by": bound[k][1], "library_ms": library.get(k),
+         "bound_ms": bound[k][0], "bound_by": "bytes" if bound[k][1] == "bytes" else "operations",
+         "library_ms": library.get(k),
          "ok": True}
         for k, (src, rep) in KERNELS.items()]}
     log("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")

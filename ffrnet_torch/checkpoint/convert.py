@@ -16,7 +16,11 @@ optax opt_state, step) across: RecNet's state dict, and the optimizer's
 moments per parameter key in torch.optim's names (Adam exp_avg/exp_avg_sq
 from optax mu/nu, SGD momentum_buffer from trace, RMSprop square_avg and
 momentum_buffer, AdaBound exp_avg/exp_avg_sq), so that a run started in
-JAX takes the same next update in the port.
+JAX takes the same next update in the port. `optimizer_state_from_leaves`
+does the same from the flat optax leaves a JAX checkpoint stores
+(`optimizer_tpu`), in the order jax.tree.leaves gives them: dict keys
+sorted at every level (`recnet_param_tree` rebuilds that tree from a
+RecNet state dict).
 
 The module takes plain numpy trees and imports nothing of the JAX package.
 """
@@ -35,6 +39,10 @@ SD = Dict[str, torch.Tensor]
 
 def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))  # a writable copy
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def _conv(out: SD, prefix: str, p: Dict[str, Any]) -> None:
@@ -153,6 +161,8 @@ _MOMENTS = {
     "rmsprop": ("RMSpropState", {"square_avg": "square_avg", "momentum_buffer": "momentum"}),
     "adabound": ("AdaBoundState", {"exp_avg": "exp_avg", "exp_avg_sq": "exp_avg_sq"}),
 }
+#: optimizer -> the names of its torch.optim per-parameter state
+STATE_NAMES = {name: frozenset(fields) | {"step"} for name, (_, fields) in _MOMENTS.items()}
 
 
 def _find_state(tree, cls_name):
@@ -168,6 +178,21 @@ def _find_state(tree, cls_name):
     return None
 
 
+def _torch_optimizer_state(name: str, trees: Dict[str, Any], step: int):
+    """{torch.optim name: a params-shaped JAX tree} -> {RecNet parameter
+    key: torch.optim state of that parameter}, with its step."""
+    out: Dict[str, Dict[str, Any]] = {}
+    for tname, tree in trees.items():
+        for key, v in recnet_state_dict(tree).items():
+            out.setdefault(key, {})[tname] = v
+    for st in out.values():
+        if name in ("adam", "rmsprop"):  # torch.optim keeps a float32 step tensor
+            st["step"] = torch.tensor(float(step), dtype=torch.float32)
+        elif name == "adabound":
+            st["step"] = int(step)
+    return out
+
+
 def optimizer_state_dict(optimizer: str, opt_state, step: int) -> Dict[str, Dict[str, Any]]:
     """The optax state of `make_optimizer(optimizer, ...)` -> {RecNet
     parameter key: torch.optim state of that parameter}. `step` is the
@@ -181,16 +206,114 @@ def optimizer_state_dict(optimizer: str, opt_state, step: int) -> Dict[str, Dict
         if name == "sgd":
             return {}
         raise ValueError(f"{optimizer}: no {cls_name} in the optimizer state")
-    out: Dict[str, Dict[str, Any]] = {}
-    for tname, jname in fields.items():
-        for key, v in recnet_state_dict(getattr(node, jname)).items():
-            out.setdefault(key, {})[tname] = v
-    for st in out.values():
-        if name in ("adam", "rmsprop"):  # torch.optim keeps a float32 step tensor
-            st["step"] = torch.tensor(float(step), dtype=torch.float32)
-        elif name == "adabound":
-            st["step"] = int(step)
+    return _torch_optimizer_state(
+        name, {tname: getattr(node, jname) for tname, jname in fields.items()}, step)
+
+
+def _conv_layer_tree(sd, prefix: str):
+    t = {"conv": {"w": _np(sd[f"{prefix}.conv2d.weight"]).transpose(2, 3, 1, 0)},
+         "norm": {}, "relu": {}}
+    if f"{prefix}.conv2d.bias" in sd:
+        t["conv"]["b"] = _np(sd[f"{prefix}.conv2d.bias"])
+    if f"{prefix}.norm.norm.weight" in sd:
+        t["norm"] = {"scale": _np(sd[f"{prefix}.norm.norm.weight"]),
+                     "bias": _np(sd[f"{prefix}.norm.norm.bias"])}
+    if f"{prefix}.relu.func.weight" in sd:
+        t["relu"] = {"slope": _np(sd[f"{prefix}.relu.func.weight"])}
+    return t
+
+
+def _res_block_tree(sd, prefix: str):
+    return {k: _conv_layer_tree(sd, f"{prefix}.{k}") for k in ("conv1", "conv2")}
+
+
+def recnet_param_tree(sd) -> Dict[str, Any]:
+    """A RecNet state dict -> the JAX package's params tree (numpy, its
+    layouts): the inverse of `recnet_state_dict` on the parameters."""
+    space = {}
+    for name, idx in [("c0", 0), ("r0", 1), ("c1", 2), ("r1", 3), ("c2", 4), ("r2", 5)]:
+        build = _conv_layer_tree if name.startswith("c") else _res_block_tree
+        space[name] = build(sd, f"Conv4Space.{idx}")
+    chan = {}
+    for i, idx in enumerate([0, 2, 3, 5, 6, 8]):
+        chan[f"lin{i}"] = {"w": _np(sd[f"Conv4Channel.{idx}.weight"]),
+                           "b": _np(sd[f"Conv4Channel.{idx}.bias"])}
+    for i, idx in enumerate([1, 4, 7]):
+        chan[f"prelu{i}"] = {"slope": _np(sd[f"Conv4Channel.{idx}.func.weight"])}
+    tree = {"conv4space": space, "conv4channel": chan,
+            "classifier": {"w": _np(sd["classifier.weight"])}}
+    for key, name in (("flipmerge", "ChannelFlipMerge"), ("merge", "Conv4Merge")):
+        tree[key] = {"c": _conv_layer_tree(sd, f"{name}.0"),
+                     "r": _res_block_tree(sd, f"{name}.1")}
+    return tree
+
+
+def _leaf_paths(tree, prefix=()):
+    """The (path, leaf) pairs of a nested dict in jax.tree.leaves order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.extend(_leaf_paths(v, prefix + (k,)))
+        else:
+            out.append((prefix + (k,), v))
     return out
+
+
+def _set_path(tree, path, value):
+    for k in path[:-1]:
+        tree = tree[k]
+    tree[path[-1]] = value
+
+
+# optimizer -> the segments of its flat optax leaves, in order: 'count' is
+# one scalar (the update count), '-' a params-shaped tree of scalars that
+# torch.optim has no counterpart of (AdaBound's unused max_exp_avg_sq),
+# any other name a params-shaped tree of that torch.optim state
+_OPTAX_LEAVES = {
+    "adam": ("count", "exp_avg", "exp_avg_sq", "count"),
+    "sgd": ("momentum_buffer", "count"),
+    "rmsprop": ("square_avg", "momentum_buffer", "count"),
+    "adabound": ("count", "exp_avg", "exp_avg_sq", "-"),
+}
+
+
+def optimizer_state_from_leaves(optimizer: str, leaves, recnet_sd, step: int):
+    """The flat optax leaves of a JAX checkpoint (`optimizer_tpu`) ->
+    {RecNet parameter key: torch.optim state}, as `optimizer_state_dict`
+    gives them from the optax state itself. recnet_sd: the state dict of
+    the RecNet they belong to (it gives the tree and every leaf's shape).
+    Raises ValueError on a leaf count or a leaf shape that does not fit."""
+    name = optimizer.lower()
+    if name not in _OPTAX_LEAVES:
+        raise ValueError(f"unknown optimizer {optimizer!r}")
+    skeleton = recnet_param_tree(recnet_sd)
+    paths = _leaf_paths(skeleton)
+    layout = _OPTAX_LEAVES[name]
+    if name == "sgd" and len(leaves) == 1:  # no momentum: the count alone
+        layout = ("count",)
+    n = sum(1 if seg == "count" else len(paths) for seg in layout)
+    if len(leaves) != n:
+        raise ValueError(f"optimizer state mismatch: {n} leaves expected for {name}, "
+                         f"checkpoint has {len(leaves)} (different optimizer?)")
+    trees, i = {}, 0
+    for seg in layout:
+        if seg == "count":
+            i += 1
+            continue
+        if seg != "-":
+            tree = recnet_param_tree(recnet_sd)
+            for j, (path, ref) in enumerate(paths):
+                leaf = _np(leaves[i + j])
+                if leaf.shape != ref.shape:
+                    raise ValueError(
+                        f"optimizer state mismatch at leaf {i + j} ({seg} of "
+                        f"{'/'.join(path)}): checkpoint shape {leaf.shape} vs expected "
+                        f"{ref.shape} (different model configuration?)")
+                _set_path(tree, path, leaf.astype(ref.dtype))
+            trees[seg] = tree
+        i += len(paths)
+    return _torch_optimizer_state(name, trees, step)
 
 
 def train_state_dicts(params, model_state, opt_state, step, optimizer: str):

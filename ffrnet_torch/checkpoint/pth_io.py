@@ -1,9 +1,10 @@
-"""Load released `.pth` / `.pth.gzip` checkpoints through `torch.load`.
+"""Load and save `.pth` / `.pth.gzip` checkpoints through torch.
 
-Counterpart of the loading half of ffrnet_tpu/checkpoint/pth_io.py and of
-the unwrapping in ffrnet_tpu/api.py::from_pretrained. The reference saves
-gzip-wrapped torch pickles; `weights_only=True` keeps loading to tensors
-and plain containers.
+Counterpart of ffrnet_tpu/checkpoint/pth_io.py and of the unwrapping in
+ffrnet_tpu/api.py::from_pretrained. The reference saves gzip-wrapped torch
+pickles; `weights_only=True` keeps loading to tensors and plain containers
+(dicts, lists, ints, floats): the released weights, the port's checkpoints
+and the JAX package's, whose optimizer state is a list of tensors.
 """
 
 from __future__ import annotations
@@ -20,6 +21,21 @@ def load_pth(path: str):
     with opener(path, "rb") as f:
         data = f.read()
     return torch.load(io.BytesIO(data), map_location="cpu", weights_only=True)
+
+
+def save_pth(obj, path: str) -> None:
+    """torch.save `obj` to `path`, gzip-wrapped when it ends in .gzip. The
+    gzip stream stores without compressing (level 0): float weights shrink
+    by about 7% under deflate, which runs at about 20 MB/s on one core
+    (seconds per checkpoint); any gzip reader reads it."""
+    buf = io.BytesIO()
+    torch.save(obj, buf)
+    if str(path).endswith(".gzip"):
+        with gzip.open(path, "wb", compresslevel=0) as f:
+            f.write(buf.getvalue())
+    else:
+        with open(path, "wb") as f:
+            f.write(buf.getvalue())
 
 
 def encoder_state_dict(obj):

@@ -74,9 +74,43 @@ def kfold_verification(scores, labels, *, n_folds: int = N_FOLDS) -> FoldResult:
     # XLA compiles the JAX version's `/ per_fold` to a multiply by the fp32
     # reciprocal; doing the same keeps the fold accuracies bit-equal
     inv = torch.tensor(1.0 / per_fold, dtype=torch.float32, device=scores.device)
-    fold_acc = fold_correct[best_idx, folds].to(torch.float32) * inv
-    return FoldResult(mean_accuracy=fold_acc.mean(), fold_accuracies=fold_acc,
-                      best_thresholds=thresholds[best_idx])
+    counts = fold_correct[best_idx, folds]
+    fold_acc = counts.to(torch.float32) * inv
+    return FoldResult(mean_accuracy=_mean_as_xla(counts, inv, n_folds),
+                      fold_accuracies=fold_acc, best_thresholds=thresholds[best_idx])
+
+
+def _mean_as_xla(counts, inv, n_folds: int):
+    """The mean of the fold accuracies as the JAX version's compiled
+    program computes it: the sum fold by fold with the reciprocal multiply
+    contracted into it, s = fma(count_k, inv, s), then times fp32(1 /
+    n_folds). Each product and sum is exact in float64, so rounding to
+    fp32 after each addition is that FMA."""
+    inv64 = inv.double()
+    s = torch.zeros((), dtype=torch.float64, device=counts.device)
+    for c in counts.double():
+        s = (s + c * inv64).float().double()
+    return s.float() * torch.tensor(1.0 / n_folds, dtype=torch.float32, device=counts.device)
+
+
+def verification_from_embeddings(f1, f2, f1_new, f2_new, labels):
+    """(rectified, raw) fold results from pair embeddings, rectified first
+    as in the reference's get_avg_accuracy."""
+    return (kfold_verification(pair_cosine(f1_new, f2_new), labels),
+            kfold_verification(pair_cosine(f1, f2), labels))
+
+
+def roc_curve(scores, labels):
+    """(fpr, tpr) over the protocol's 400-threshold grid, the module's one
+    round-down f32 grid (`_T32`), on the scores' device."""
+    thresholds = torch.from_numpy(_T32).to(scores.device)
+    pred = scores.float()[None, :] > thresholds[:, None]  # (T, N)
+    pos = (labels.to(scores.device) > 0)[None, :]
+    tp = (pred & pos).sum(dim=1).to(torch.float32)
+    fp = (pred & ~pos).sum(dim=1).to(torch.float32)
+    n_pos = pos.sum().clamp(min=1).to(torch.float32)
+    n_neg = (~pos).sum().clamp(min=1).to(torch.float32)
+    return fp / n_neg, tp / n_pos
 
 
 def _host(a):

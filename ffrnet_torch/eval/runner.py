@@ -1,28 +1,42 @@
 """Evaluation runner: batched pair embedding + on-device verification.
 
-Counterpart of ffrnet_tpu/eval/runner.py::evaluate_pairs. Each pair batch
-goes through the encoder and RecNet as one 2N batch; the scores stay on the
-device through the loop and the 10-fold sweep runs there too, so the host
-waits for the device only once, when the results are copied at the end.
+Counterpart of ffrnet_tpu/eval/runner.py. Each pair batch goes through the
+encoder and RecNet as one 2N batch; the scores stay on the device through
+the loop and the 10-fold sweep runs there too, so the host waits for the
+device only once, when the results are copied at the end.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Callable, Iterable
 
+import numpy as np
 import torch
 
 from ffrnet_torch.eval.lfw import kfold_verification
 
 
-def evaluate_pairs(score_fn: Callable, batches: Iterable):
+def make_pair_score_fn(encoder, recnet) -> Callable:
+    """(img1, img2) -> (raw scores, rectified scores): both sides in one 2N
+    pass through `encoder` and `recnet`, NHWC images (uint8 normalized on
+    the device) moved to the encoder's device. Both modules must be in
+    eval mode (RecNet's BNs then use their running stats)."""
+    from ffrnet_torch.api import FFRNet
+
+    return FFRNet(encoder, recnet, recnet.cfg, encoder.input_layer[0].weight.device).pair_scores
+
+
+def evaluate_pairs(score_fn: Callable, batches: Iterable, *, return_scores: bool = False):
     """Full verification protocol over {'img1', 'img2', 'label'} batches,
     or packed {'imgs': (N, 2, H, W, 3), 'label'} ones, split here into
     imgs[:, 0] and imgs[:, 1].
 
     score_fn(img1, img2) -> (scores_raw, scores_rect) on the device, e.g.
-    `FFRNet.pair_scores`. Returns (result_rect, result_raw) on the host,
-    rectified first as in the reference's get_avg_accuracy.
+    `FFRNet.pair_scores` or `make_pair_score_fn`. Returns (result_rect,
+    result_raw) on the host, rectified first as in the reference's
+    get_avg_accuracy; with return_scores also (scores_rect, scores_raw,
+    labels) as host numpy arrays (they feed the misclassified-pair dumps).
     """
     raw_chunks, new_chunks, labels = [], [], []
     for batch in batches:
@@ -32,12 +46,49 @@ def evaluate_pairs(score_fn: Callable, batches: Iterable):
             s_raw, s_new = score_fn(batch["img1"], batch["img2"])
         raw_chunks.append(s_raw)
         new_chunks.append(s_new)
-        labels.append(torch.as_tensor(batch["label"]).to(s_raw.device,
-                                                          non_blocking=True))
+        labels.append(torch.as_tensor(batch["label"]).to(s_raw.device, non_blocking=True))
     if not raw_chunks:
         raise ValueError("evaluate_pairs got no batches — empty pair list "
                          "or exhausted iterator?")
     lab = torch.cat(labels)
-    results = (kfold_verification(torch.cat(new_chunks), lab),
-               kfold_verification(torch.cat(raw_chunks), lab))
-    return tuple(type(r)(*(t.cpu() for t in r)) for r in results)
+    s_new, s_raw = torch.cat(new_chunks), torch.cat(raw_chunks)
+    results = tuple(type(r)(*(t.cpu() for t in r))
+                    for r in (kfold_verification(s_new, lab), kfold_verification(s_raw, lab)))
+    if return_scores:
+        return results + (s_new.float().cpu().numpy(), s_raw.float().cpu().numpy(),
+                          lab.cpu().numpy())
+    return results
+
+
+def process_pair_slice(n_pairs: int, process_index: int = 0, process_count: int = 1) -> slice:
+    """The contiguous block of the pair list that process `process_index`
+    of `process_count` scores (the folds are contiguous ranges, so the
+    blocks gathered in process order give the protocol's pair order); the
+    remainder goes one pair each to the lowest process ids."""
+    base, rem = divmod(n_pairs, process_count)
+    start = process_index * base + min(process_index, rem)
+    return slice(start, start + base + (1 if process_index < rem else 0))
+
+
+def save_wrong_images(dataset, wrong_idx, out_dir: str) -> int:
+    """Write each misclassified pair as {idx:04d}_1.png / _2.png under
+    out_dir (the reference's save_wrong_imgs). The dataset gives
+    {'img1', 'img2'} BGR, uint8 or [-1, 1]; pass one with flip_prob 0 for
+    reproducible dumps. Returns the number of files written."""
+    from PIL import Image
+
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(0)
+    written = 0
+    for i in np.asarray(wrong_idx).ravel():
+        sample = dataset.get(int(i), rng)
+        for key, suffix in (("img1", "_1"), ("img2", "_2")):
+            if sample[key].dtype == np.uint8:
+                rgb = sample[key][:, :, ::-1]
+            else:
+                bgr = np.clip(sample[key] * 0.5 + 0.5, 0.0, 1.0)
+                rgb = (bgr[:, :, ::-1] * 255.0).round().astype(np.uint8)
+            Image.fromarray(np.ascontiguousarray(rgb)).save(
+                os.path.join(out_dir, f"{int(i):04d}{suffix}.png"))
+            written += 1
+    return written

@@ -1,0 +1,376 @@
+"""Train / test driver for one card (ffrnet_tpu/train.py).
+
+    python -m ffrnet_torch.train --phase train --train_data <CASIA root> \\
+        --train_img_list <list> --test_data <LFW root> --test_pair_list <pairs.txt> ...
+    python -m ffrnet_torch.train --phase test --test_data <LFW root> ...
+
+The JAX package's flags (config.py) and cadence: the metrics of every
+iteration; a 'latest' checkpoint every max(save_freq//10, 1) iterations
+and a numbered one every save_freq; LFW eval at ocl 0, 1 and 2 every
+eval_freq; the LR schedule per iteration; --continue_train 1 --which_file
+<name> resumes at the stored epoch and iteration, inside the epoch. Runs on
+the card unless --device cpu.
+
+The step's metrics are 0-d tensors on the card: they are queued, and
+fetched in one copy at each print, save, eval or preemption boundary,
+where every queued TotalLoss is checked to be finite before anything is
+written.
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+import sys
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ffrnet_torch.api import resolve_device
+from ffrnet_torch.checkpoint.pth_io import (encoder_state_dict, load_pth,
+                                            recnet_state_dict)
+from ffrnet_torch.checkpoint.store import (load_checkpoint, optimizer_state,
+                                           save_checkpoint)
+from ffrnet_torch.config import Options, parse_args
+from ffrnet_torch.data.datasets import CasiaPairs, LfwPairs, SyntheticPairs
+from ffrnet_torch.data.pipeline import BatchLoader
+from ffrnet_torch.eval.runner import evaluate_pairs, make_pair_score_fn
+from ffrnet_torch.models.irse import build_backbone, check_state_dict
+from ffrnet_torch.models.recnet import build_recnet
+from ffrnet_torch.training.trainer import (FEATURE_PACK, create_train_state, half_dtype,
+                                           load_train_state, train_step,
+                                           train_step_from_features)
+from ffrnet_torch.utils.logger import Logger
+from ffrnet_torch.utils.timer import Timer
+
+
+class PreemptionGuard:
+    """SIGTERM/SIGUSR1 -> finish the step in flight, write 'latest', exit
+    with a resume hint. The handler only sets a flag; the work happens at a
+    safe point of the train loop (checkpoint writes are atomic anyway)."""
+
+    def __init__(self):
+        self.requested = False
+        self._prev_handlers = {}
+
+    def install(self) -> "PreemptionGuard":
+        import signal
+
+        for sig in (signal.SIGTERM, signal.SIGUSR1):
+            self._prev_handlers[sig] = signal.signal(sig, self._handler)
+        return self
+
+    def uninstall(self) -> None:
+        """Restore the handlers that were there before install(), so a
+        signal after train() returns terminates as it would have."""
+        import signal
+
+        for sig, prev in self._prev_handlers.items():
+            try:
+                signal.signal(sig, prev)
+            except (ValueError, TypeError):  # not the main thread / odd prev
+                pass
+        self._prev_handlers = {}
+
+    def _handler(self, signum, frame):
+        self.requested = True
+        print(f"[preempt] signal {signum} received — will checkpoint and exit after the "
+              "current step", file=sys.stderr, flush=True)
+
+
+#: module-level so tests (and embedding applications) can trigger and inspect it
+preemption_guard = PreemptionGuard()
+
+
+def load_encoder(opts: Options, device) -> torch.nn.Module:
+    """The frozen fp32 IR-SE50 in eval mode on `device`: from
+    --encoder_weights when the file exists, else random (seed 0). On the
+    card TF32 is switched off (process-wide, as FFRNet.prepare does): eval
+    and the feature cache keep fp32 numerics."""
+    device = torch.device(device)
+    if opts.encoder_weights and os.path.exists(opts.encoder_weights):
+        sd = encoder_state_dict(load_pth(opts.encoder_weights))
+        check_state_dict(sd)
+        enc = build_backbone()
+        enc.load_state_dict(sd)
+    else:
+        print(f"[warn] encoder weights {opts.encoder_weights!r} not found — random init "
+              "(parity numbers will be meaningless)", file=sys.stderr)
+        enc = build_backbone(generator=torch.Generator().manual_seed(0))
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return enc.to(device).eval()
+
+
+def make_train_dataset(opts: Options):
+    host_norm = bool(opts.host_normalize)
+    if opts.train_data in ("", "synthetic"):
+        print("[warn] no --train_data given — synthetic identity dataset", file=sys.stderr)
+        return SyntheticPairs(num_identities=min(opts.num_classes, 64),
+                              host_normalize=host_norm)
+    img_list = opts.train_img_list or os.path.join(
+        os.path.dirname(opts.train_data), "test", "casia_cleanlist.txt")
+    return CasiaPairs(opts.train_data, img_list, host_normalize=host_norm)
+
+
+def make_eval_batches(opts: Options, ocl_num: int, batch_size: int, device=None):
+    """(the eval batches of one ocl level, the number of pairs). The
+    reference's random eval flip is opt-in (--faithful_eval_flip 1); the
+    loader uploads each batch to `device` in its producer thread."""
+    ds = LfwPairs(opts.test_data, opts.test_pair_list, test_ocl_num=ocl_num,
+                  flip_prob=0.5 if opts.faithful_eval_flip else 0.0,
+                  host_normalize=bool(opts.host_normalize))
+    loader = BatchLoader(ds, batch_size, shuffle=False, drop_last=False, seed=opts.seed,
+                         num_threads=opts.n_thread, device=device,
+                         pack={"imgs": ("img1", "img2")} if opts.pack_upload else None)
+    return loader.epoch(0), len(ds)
+
+
+def eval_lfw(opts: Options, encoder, recnet, ocl_num: int, *,
+             dump_wrong_to: Optional[str] = None, metrics_out: Optional[dict] = None):
+    """(acc_new, acc) at one occlusion count, with the fp32 `encoder` and
+    `recnet` in eval mode (a RecNet in train mode goes back to it after,
+    also when the eval raises).
+
+    dump_wrong_to: write each misclassified pair's images under
+    <dump_wrong_to>/wrong_images{,_new}_ocl{n}/. metrics_out: filled with
+    the exact-ROC operating points {"new"/"raw": {"tar@far", "eer", "auc"}}.
+    """
+    from ffrnet_torch.eval.lfw import misclassified_indices, roc_metrics
+    from ffrnet_torch.eval.runner import save_wrong_images
+
+    was_training = recnet.training
+    recnet.eval()
+    try:
+        device = encoder.input_layer[0].weight.device
+        batches, _ = make_eval_batches(opts, ocl_num, opts.batch_size, device=device)
+        want_scores = dump_wrong_to is not None or metrics_out is not None
+        out = evaluate_pairs(make_pair_score_fn(encoder, recnet), batches,
+                             return_scores=want_scores)
+    finally:
+        recnet.train(was_training)
+    res_new, res_raw = out[:2]
+    if want_scores:
+        s_new, s_raw, labels = out[2:]
+        if metrics_out is not None:
+            metrics_out["new"] = roc_metrics(s_new, labels)
+            metrics_out["raw"] = roc_metrics(s_raw, labels)
+        if dump_wrong_to is not None:
+            dump_ds = LfwPairs(opts.test_data, opts.test_pair_list, test_ocl_num=ocl_num,
+                               flip_prob=0.0)
+            for scores, res, sub in ((s_new, res_new, "wrong_images_new"),
+                                     (s_raw, res_raw, "wrong_images")):
+                wrong = misclassified_indices(scores, labels, res)
+                n = save_wrong_images(dump_ds, wrong,
+                                      os.path.join(dump_wrong_to, f"{sub}_ocl{ocl_num}"))
+                print(f"[save_wrong] ocl{ocl_num} {sub}: {n} files", file=sys.stderr)
+    return float(res_new.mean_accuracy), float(res_raw.mean_accuracy)
+
+
+def train(opts: Options) -> None:
+    # armed first: setup takes long enough for a grace-window signal to land
+    guard = preemption_guard
+    guard.requested = False
+    try:
+        guard.install()
+    except ValueError:  # not the main thread
+        pass
+    try:
+        _train(opts, guard)
+    finally:
+        guard.uninstall()
+
+
+def _train(opts: Options, guard: PreemptionGuard) -> None:
+    logger = Logger(opts.log_dir, opts.save_weight_dir, phase="train")
+    timer = Timer()
+    cfg = opts.trainer_config()
+    device = resolve_device(opts.device)
+
+    dataset = make_train_dataset(opts)
+    encoder = load_encoder(opts, device)
+
+    state = create_train_state(cfg, seed=opts.seed, device=device)
+    start_epoch, start_iter = 0, 0
+    if opts.continue_train:
+        sd, opt, meta = load_checkpoint(opts.ckpt_dir, opts.which_file)
+        opt_sd = {} if opt is None else optimizer_state(opt, cfg.optimizer, state.model,
+                                                        meta["iter"])
+        load_train_state(state, sd, opt_sd, meta["iter"])
+        start_epoch, start_iter = meta["epoch"], meta["iter"]
+    elif opts.recnet_weights:
+        state.model.load_state_dict(recnet_state_dict(load_pth(opts.recnet_weights),
+                                                      cfg.recnet))
+
+    if opts.cache_features:
+        # the frozen encoder runs once over every (sample, flip); the steps
+        # are RecNet-only, and the fp32 encoder stays for the LFW eval
+        from ffrnet_torch.training.feature_cache import (CachedFeatureDataset,
+                                                         build_feature_cache, to_nchw)
+
+        cache_dir = opts.feature_cache_dir or os.path.join(opts.ckpt_dir, "feature_cache")
+        flip_prob = getattr(dataset, "flip_prob", 0.0)
+        flipfree = dataset
+        if flip_prob:  # shares the parsed items; __post_init__ does not run again
+            flipfree = copy.copy(dataset)
+            flipfree.flip_prob = 0.0
+        if not isinstance(dataset, CasiaPairs):
+            print("[warn] --cache_features with a non-CasiaPairs dataset: the cache "
+                  "freezes any per-epoch augmentation beyond the paired flip (e.g. "
+                  "SyntheticPairs noise is drawn once)", file=sys.stderr)
+        build_feature_cache(flipfree, encoder, cache_dir, batch_size=opts.batch_size,
+                            compute_dtype=cfg.compute_dtype, num_threads=opts.n_thread)
+        dataset = CachedFeatureDataset(cache_dir, flip_prob=flip_prob)
+        pack = FEATURE_PACK if opts.pack_upload else None
+
+        def step(batch):
+            return train_step_from_features(state, to_nchw(batch), cfg=cfg)
+    else:
+        half = half_dtype(cfg.compute_dtype)
+        step_encoder = encoder if half is None else copy.deepcopy(encoder).to(half)
+        pack = {"imgs": ("img_non", "img_ocl")} if opts.pack_upload else None
+
+        def step(batch):
+            return train_step(step_encoder, state, batch, cfg=cfg)
+
+    def save_now(name: str, epoch: int, iteration: int) -> None:
+        save_checkpoint(opts.ckpt_dir, name, model=state.model,
+                        optimizer=state.optimizer.inner, epoch=epoch, iteration=iteration)
+        timer.update_time("Save")  # the write stays out of the next DataTime
+
+    loader = BatchLoader(dataset, opts.batch_size, shuffle=not opts.debug,
+                         drop_last=not opts.debug, seed=opts.seed,
+                         num_threads=opts.n_thread, device=device, pack=pack)
+
+    logger.record_text("model_config", opts.config_string)
+    cur_iters = start_iter
+    total_iters = opts.total_epochs * len(loader)
+
+    # Each step's metrics are 0-d device tensors: fetched in one copy at the
+    # next print/save/eval/preemption boundary, not one sync per step
+    pending: list = []
+
+    def flush_metrics() -> None:
+        """Fetch and log the queued metrics, and raise on a non-finite
+        TotalLoss: this runs before every checkpoint write, so a poisoned
+        step never reaches a checkpoint."""
+        if not pending:
+            return
+        keys = [k for k in pending[0][2] if k != "LR"]
+        fetched = torch.stack([torch.stack([m[k].detach().float() for k in keys])
+                               for _, _, m in pending]).cpu().tolist()
+        queued, pending[:] = list(pending), []
+        for (it, ep, m), row in zip(queued, fetched):
+            logger.set_current_iter(it, ep)
+            values = dict(zip(keys, row))
+            values["LR"] = float(m["LR"])
+            logger.record_scalar(values, "train_values")
+            logger.print_scalar({k: f"{v:.4f}" for k, v in values.items() if k != "LR"})
+            logger.print_scalar({"LR": f"{values['LR']:.6f}"})
+            if not np.isfinite(values["TotalLoss"]):
+                logger.close()
+                raise FloatingPointError(
+                    f"non-finite loss at iter {it} (epoch {ep}); restart with "
+                    "--continue_train 1 --which_file latest")
+        timer.update_time("Flush")  # the fetch stays out of the next DataTime
+
+    # In-epoch resume: checkpoints store the GLOBAL iteration; the batches
+    # already taken in the resume epoch are start_iter - start_epoch *
+    # len(loader) (the reference compares the in-epoch index with the
+    # global count, which skips the whole resume epoch). The loader skips
+    # them without decoding, and its per-sample RNG keeps the rest as they
+    # were.
+    skip_in_epoch = min(max(start_iter - start_epoch * len(loader), 0), len(loader))
+
+    for epoch in range(start_epoch, opts.total_epochs):
+        start_b = skip_in_epoch if epoch == start_epoch else 0
+        for batch in loader.epoch(epoch, start_batch=start_b):
+            cur_iters += 1
+            timer.update_time("DataTime")
+
+            _, metrics = step(batch)
+            timer.update_time("Step")
+            pending.append((cur_iters, epoch, metrics))
+
+            if cur_iters % opts.print_freq == 0:
+                flush_metrics()
+                print(f"Model Configuration: {opts.save_weight_dir}")
+                logger.print_iter_summary(total_iters, opts.total_epochs, timer)
+
+            if cur_iters % opts.save_freq == 0:
+                flush_metrics()
+                save_now("debug" if opts.debug else f"{cur_iters:07d}", epoch, cur_iters)
+            if cur_iters % max(opts.save_freq // 10, 1) == 0:
+                flush_metrics()
+                save_now("latest", epoch, cur_iters)
+
+            if guard.requested:
+                flush_metrics()
+                save_now("latest", epoch, cur_iters)
+                print(f"[preempt] checkpointed at iter {cur_iters} (epoch {epoch}); resume "
+                      "with --continue_train 1 --which_file latest", file=sys.stderr,
+                      flush=True)
+                logger.close()
+                return
+
+            if opts.eval_freq and cur_iters % opts.eval_freq == 0 and opts.test_data:
+                flush_metrics()
+                for ocl in range(1 if opts.debug else 3):
+                    acc_new, acc = eval_lfw(opts, encoder, state.model, ocl)
+                    logger.record_scalar({"acc": acc}, f"test_acc/ocl{ocl}")
+                    logger.record_scalar({"acc_new": acc_new}, f"test_acc/ocl{ocl}")
+                    print(f"test result ocl{ocl}: acc_new {acc_new:.4f} acc {acc:.4f}")
+                timer.update_time("Eval")
+            if opts.debug:
+                break
+    flush_metrics()
+    logger.close()
+
+
+def test(opts: Options) -> None:
+    logger = Logger(opts.log_dir, opts.save_weight_dir, phase="test")
+    cfg = opts.trainer_config()
+    device = resolve_device(opts.device)
+    encoder = load_encoder(opts, device)
+    if opts.recnet_weights:
+        sd = recnet_state_dict(load_pth(opts.recnet_weights), cfg.recnet)
+    else:
+        sd, _, _ = load_checkpoint(opts.ckpt_dir, opts.which_file)
+    recnet = build_recnet(cfg.recnet)
+    recnet.load_state_dict(sd)
+    recnet = recnet.to(device).eval()
+    logger.set_current_iter(0, 0)
+    dump_dir = opts.ckpt_dir if opts.save_wrong else None
+    for ocl in range(3):
+        metrics = {} if opts.report_roc else None
+        acc_new, acc = eval_lfw(opts, encoder, recnet, ocl, dump_wrong_to=dump_dir,
+                                metrics_out=metrics)
+        logger.record_scalar({"acc": acc}, f"test_acc/ocl{ocl}")
+        logger.record_scalar({"acc_new": acc_new}, f"test_acc_new/ocl{ocl}")
+        print(f"test result ocl{ocl}: acc_new {acc_new:.4f} acc {acc:.4f}")
+        if metrics:
+            for kind in ("new", "raw"):
+                m = metrics[kind]
+                logger.record_scalar(
+                    {"eer": m["eer"], "auc": m["auc"],
+                     **{f"tar@far{f:g}": t for f, t in m["tar@far"].items()}},
+                    f"test_roc_{kind}/ocl{ocl}")
+                tars = " ".join(f"tar@{f:g} {t:.4f}" for f, t in sorted(m["tar@far"].items()))
+                print(f"test roc ocl{ocl} [{kind}]: eer {m['eer']:.4f} auc {m['auc']:.4f} "
+                      f"{tars}")
+    logger.close()
+
+
+def main(argv=None):
+    opts = parse_args(argv)
+    np.random.seed(opts.seed)
+    if opts.phase == "train":
+        train(opts)
+    else:
+        test(opts)
+
+
+if __name__ == "__main__":
+    main()

@@ -208,7 +208,11 @@ def test_import_leaves_jax_out():
             "ffrnet_torch.training.losses, ffrnet_torch.training.optimizers, "
             "ffrnet_torch.training.adabound, ffrnet_torch.training.schedules, "
             "ffrnet_torch.data.datasets, ffrnet_torch.tools.bench_train, "
-            "ffrnet_torch.tools.profile_train; "
+            "ffrnet_torch.tools.profile_train, ffrnet_torch.train, ffrnet_torch.run, "
+            "ffrnet_torch.config, ffrnet_torch.data.pipeline, ffrnet_torch.data.native, "
+            "ffrnet_torch.checkpoint.store, ffrnet_torch.training.feature_cache, "
+            "ffrnet_torch.utils.logger, ffrnet_torch.utils.timer, ffrnet_torch.utils.profiling, "
+            "ffrnet_torch.eval.runner; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'ffrnet_tpu')); print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
