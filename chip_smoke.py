@@ -1,4 +1,4 @@
-"""Drive the PyTorch/H100 port's inference, ingest and training paths on one NVIDIA GPU.
+"""Drive the PyTorch/H100 port's inference, ingest, training and serving paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -56,6 +56,16 @@ exits non-zero without a result line:
               exactly; the first eval batch's scores on the card against the
               CPU; driver steps/s and DataTime share, eval pairs/s, cache
               faces/s and checkpoint save ms
+ 10. serve    EmbeddingService(max_batch=256) + EmbeddingHTTPServer on
+              127.0.0.1:0 in the fused configuration, fp32 and bf16: 16
+              client threads POST /embed (1-8 faces, float32 and uint8
+              bodies) for 5 s (bf16 3 s), each response against a direct
+              embed; /verify against pair_cosine; /enroll 64 labels and
+              /identify k=5 of the same faces (rank 1 exact, a duplicated
+              face by lower index); /stats against what was sent and
+              dispatched; single-face latency at one client; a short
+              ss_kernel load; the launches of each counted window checked
+              exactly against the batches dispatched
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit as nvidia-smi gives them, and the result line
@@ -68,7 +78,9 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -1468,6 +1480,239 @@ def phase_driver(dev, card):
     log("driver", f"all driver checks passed in {time.perf_counter() - t0:.1f} s")
 
 
+# ----------------------------------------------------------------- phase 10
+
+SERVE_CLIENTS = 16
+SERVE_POOL = 64      # distinct faces the requests draw from
+# bf16 served vs direct: cuDNN may plan each batch size differently, and
+# every layer rounds to 8 mantissa bits, so rows are held by cosine
+SERVE_BF16_MIN_COS = 0.999
+VERIFY_TOL = (1e-5, 0.0)
+
+
+def http_post(base, path, body, headers=None):
+    req = urllib.request.Request(base + path, data=body, method="POST", headers=headers or {})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.read()
+
+
+def http_get(base, path):
+    with urllib.request.urlopen(base + path, timeout=120) as r:
+        return r.read()
+
+
+def serve_check(what, got, want, bf16):
+    """got, want: (2, k, 512) raw and rectified rows -> the worst error
+    (fp32: max abs error within PATH_TOL; bf16: 1 - min cosine)."""
+    got, want = torch.from_numpy(got.copy()), torch.from_numpy(want)
+    if not bf16:
+        return check_close(what, got, want, *PATH_TOL)
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=2).min().item()
+    if not cos >= SERVE_BF16_MIN_COS:
+        raise AssertionError(f"{what}: min cosine {cos:.6f} below {SERVE_BF16_MIN_COS}")
+    return 1.0 - cos
+
+
+def serve_load(base, pool_u8, want, seconds, clients, bf16, seed):
+    """`clients` closed-loop threads POST /embed for `seconds`: groups of
+    1-8 faces of the pool as float32 or uint8 bodies, each response held
+    against the direct embed of the same faces. -> (faces, requests, wall
+    seconds, worst error)."""
+    pool_f32 = (pool_u8.astype(np.float32) / 255.0 - 0.5) / 0.5  # the card's bits
+    stop = time.monotonic() + seconds
+    lock, tally, failures = threading.Lock(), [0, 0, 0.0], []
+
+    def client(c):
+        rng = np.random.default_rng(seed + c)
+        faces = requests = 0
+        worst = 0.0
+        try:
+            while time.monotonic() < stop:
+                k = int(rng.integers(1, 9))
+                i = int(rng.integers(0, len(pool_u8) - k + 1))
+                if rng.integers(0, 2):
+                    body, hdr = pool_u8[i:i + k].tobytes(), {"X-Input-Dtype": "uint8"}
+                else:
+                    body, hdr = pool_f32[i:i + k].astype("<f4").tobytes(), {}
+                out = np.frombuffer(http_post(base, "/embed", body, hdr), "<f4")
+                worst = max(worst, serve_check(f"/embed faces {i}:{i + k}",
+                                               out.reshape(2, k, 512), want[:, i:i + k], bf16))
+                faces, requests = faces + k, requests + 1
+        except Exception as e:  # noqa: BLE001 — raised below, after the join
+            failures.append(e)
+        with lock:
+            tally[0] += faces
+            tally[1] += requests
+            tally[2] = max(tally[2], worst)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(seconds + 120)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("serve: a client thread did not finish")
+    if failures:
+        raise failures[0]
+    return tally[0], tally[1], wall, tally[2]
+
+
+def single_face_latency(base, pool_u8, samples):
+    """Host ms of `samples` single-face uint8 /embed requests at one client."""
+    out = []
+    for i in range(samples):
+        body = pool_u8[i % len(pool_u8)][None].tobytes()
+        t = time.perf_counter()
+        http_post(base, "/embed", body, {"X-Input-Dtype": "uint8"})
+        out.append((time.perf_counter() - t) * 1e3)
+    return np.asarray(out)
+
+
+def check_serve_counts(name, counts, batches, kernel):
+    expected = {k: 0 for k in KERNELS}
+    expected["se_gating"] = 24 * batches
+    expected[kernel] = batches
+    if counts != expected:
+        raise AssertionError(f"serve {name}: launch counts {counts}, expected {expected} for "
+                             f"{batches} dispatched batches")
+    log("serve", f"{name}: {batches} dispatched batches -> {counts} (24 se_gating and one "
+        f"{kernel} per batch)")
+
+
+def check_stats(name, base, svc, faces, requests):
+    """/stats against what the clients sent and what the collector
+    dispatched (each batch padded to its bucket)."""
+    stats = json.loads(http_get(base, "/stats"))
+    sizes = list(svc.stats.batch_sizes)
+    padded = sum(next(b for b in svc._buckets if b >= s) - s for s in sizes)
+    want = {"requests": requests, "faces": faces, "batches": len(sizes), "errors": 0,
+            "padded_faces": padded}
+    if {k: stats[k] for k in want} != want or len(sizes) != svc.stats.batches:
+        raise AssertionError(f"serve {name}: /stats {stats}, expected {want}")
+    return stats
+
+
+def serve_gallery(base, srv, svc, pool_u8):
+    """/enroll the pool under 64 labels, /identify the same faces with k=5:
+    rank 1 must be each face's own label. Then a server warm-started from
+    the gallery with face 7 enrolled again (a bit-equal row) must rank the
+    two by index. -> (faces, requests) sent."""
+    from ffrnet_torch.eval.search import Gallery
+    from ffrnet_torch.serving import EmbeddingHTTPServer
+
+    labels = [f"id{i:02d}" for i in range(len(pool_u8))]
+    u8 = {"X-Input-Dtype": "uint8"}
+    r = json.loads(http_post(base, "/enroll", pool_u8.tobytes(), {**u8, "X-Labels": ",".join(labels)}))
+    if r != {"enrolled": len(labels), "gallery_size": len(labels)}:
+        raise AssertionError(f"serve /enroll: {r}")
+    r = json.loads(http_post(base, "/identify", pool_u8.tobytes(), {**u8, "X-Top-K": "5"}))
+    top1 = [row[0] for row in r["labels"]]
+    if top1 != labels:
+        bad = [(i, t) for i, t in enumerate(top1) if t != labels[i]]
+        raise AssertionError(f"serve /identify: rank 1 not the face's own label at {bad[:5]}")
+    scores = np.asarray(r["scores"])
+    snap = srv.gallery()
+    dup = Gallery(torch.cat([snap.embeddings, snap.embeddings[7:8]]), snap.labels + ["dup07"])
+    with EmbeddingHTTPServer(svc, gallery=dup) as srv2:
+        r2 = json.loads(http_post(f"http://127.0.0.1:{srv2.port}", "/identify",
+                                  pool_u8[7:8].tobytes(), {**u8, "X-Top-K": "2"}))
+    if r2["labels"] != [["id07", "dup07"]] or r2["scores"][0][0] != r2["scores"][0][1]:
+        raise AssertionError(f"serve: a duplicated face ranks {r2}, expected id07 then dup07")
+    log("serve", f"gallery: /enroll {len(labels)} labels; /identify k=5 of the same faces: rank 1 "
+        f"exact, self score min {scores[:, 0].min():.6f}, margin over rank 2 min "
+        f"{(scores[:, 0] - scores[:, 1]).min():.6f}; a face enrolled twice (warm start) ranks "
+        f"id07 then dup07 at equal scores {r2['scores'][0]}")
+    return 2 * len(labels) + 1, 3
+
+
+def serve_one(name, model, pool_u8, seconds, clients, card, gallery=False, latency=0):
+    """One model behind EmbeddingService(max_batch=256) + the HTTP front on
+    127.0.0.1:0: warmup, the direct N=1 latency, then the counted window
+    (the load, /verify and the gallery, single-face latency), then the
+    direct embed at the load's mean batch. -> the launch counts."""
+    from ffrnet_torch.eval.lfw import pair_cosine
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ffrnet_torch.serving import EmbeddingHTTPServer, EmbeddingService
+
+    bf16 = model.dtype == torch.bfloat16
+    want = np.stack([t.float().cpu().numpy() for t in model.embed(pool_u8)])  # direct, N=64
+    svc = EmbeddingService(model, max_batch=256)
+    try:
+        with EmbeddingHTTPServer(svc, ("127.0.0.1", 0)) as srv:
+            base = f"http://127.0.0.1:{srv.port}"
+            t0 = time.perf_counter()
+            svc.warmup()
+            warm = time.perf_counter() - t0
+            if latency:  # the direct call a served single face is compared with
+                direct_1 = host_ms(lambda: model.embed(pool_u8[:1]), samples=latency)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            faces, requests, wall, worst = serve_load(base, pool_u8, want, seconds, clients,
+                                                      bf16, seed=100)
+            st = svc.stats
+            rate, mean = faces / wall, st.mean_batch
+            padded = st.padded_faces / (st.faces + st.padded_faces)
+            log("serve", f"{name}: {clients} clients x {wall:.2f} s of /embed (1-8 faces, float32 "
+                f"and uint8 bodies): {rate:.1f} served faces/s, {requests / wall:.1f} "
+                f"requests/s, {st.batches} batches, mean batch {mean:.2f}, padded fraction "
+                f"{padded:.3f}; every response vs a direct embed: worst "
+                f"{'1 - cosine' if bf16 else 'abs err'} {worst:.3e} (warmup of "
+                f"{len(svc._buckets)} buckets {warm:.2f} s) | {card}")
+            if gallery:
+                s = np.frombuffer(http_post(base, "/verify", pool_u8.tobytes(),
+                                            {"X-Input-Dtype": "uint8"}), "<f4")
+                h = SERVE_POOL // 2
+                e = check_close("/verify vs pair_cosine of direct embeds", torch.from_numpy(s.copy()),
+                                pair_cosine(torch.from_numpy(want[1, :h]),
+                                            torch.from_numpy(want[1, h:])), *VERIFY_TOL)
+                log("serve", f"{name}: /verify {h} pairs vs pair_cosine of direct embeds: max_abs_err "
+                    f"{e:.3e} (tol {VERIFY_TOL[0]})")
+                f, r = serve_gallery(base, srv, svc, pool_u8)
+                faces, requests = faces + SERVE_POOL + f, requests + 1 + r
+            if latency:
+                t = single_face_latency(base, pool_u8, latency)
+                log("serve", f"{name}: single-face /embed at one client: p50 {np.median(t):.3f} ms, "
+                    f"p90 {np.percentile(t, 90):.3f} ms ({latency} requests); direct embed N=1 "
+                    f"(host uint8, synchronized) before the window: p50 {np.median(direct_1):.3f} "
+                    f"ms, p90 {np.percentile(direct_1, 90):.3f} ms | {card}")
+                faces, requests = faces + latency, requests + latency
+            check_stats(name, base, svc, faces, requests)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+    finally:
+        svc.close()
+    check_serve_counts(name, counts, svc.stats.batches,
+                       "self_similarity" if model.cfg.ss_impl == "kernel" else "channel_branch")
+    n = max(1, round(mean))
+    batch = np.resize(pool_u8, (n,) + pool_u8.shape[1:])
+    t = host_ms(lambda: model.embed(batch), samples=10)
+    log("serve", f"{name}: direct embed at the load's mean batch N={n} (host uint8, synchronized): "
+        f"median {np.median(t):.3f} ms, {n / np.median(t) * 1e3:.1f} faces/s, against "
+        f"{rate:.1f} served faces/s | {card}")
+    return counts
+
+
+def phase_serve(models, card):
+    """The serving path on the card: fused fp32 (load, /verify, gallery,
+    latency), fused bf16 (load, latency), ss_kernel fp32 (a short load).
+    -> the launch counts of the three counted windows, summed."""
+    t0 = time.perf_counter()
+    pool = torch.randint(0, 256, (SERVE_POOL, 112, 112, 3), generator=gen(60),
+                         dtype=torch.uint8).numpy()
+    runs = [("fused fp32", models["fused"], 5.0, SERVE_CLIENTS, dict(gallery=True, latency=100)),
+            ("fused bf16", models["fused"].prepare(dtype=torch.bfloat16), 3.0, SERVE_CLIENTS,
+             dict(latency=50)),
+            ("ss_kernel fp32", models["ss_kernel"], 1.5, 8, {})]
+    total = {k: 0 for k in KERNELS}
+    for name, model, seconds, clients, kw in runs:
+        for k, v in serve_one(name, model, pool, seconds, clients, card, **kw).items():
+            total[k] += v
+    log("serve", f"all serving checks passed in {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 # ---------------------------------------------------------------------- main
 
 
@@ -1492,6 +1737,8 @@ def main():
     times, bound, library = phase_times(models, dev, smi)
     phase_train(fused, dev, smi)
     phase_driver(dev, smi)
+    for k, v in phase_serve(models, smi).items():
+        counts[k] += v
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": counts[k],
          "max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],

@@ -82,7 +82,7 @@ class Options:
     print_freq: int = 10
     eval_freq: int = 100
     report_roc: int = 0           # test phase: also the exact-ROC operating points
-    visualize: int = 0            # not ported: raises (ROADMAP Queue 1 item 8)
+    visualize: int = 0            # log the attention panel at each eval (train.py)
     # parallelism: one card (0 or 1); more raises (ROADMAP Queue 1 item 6)
     mesh_data: int = 0
     mesh_model: int = 1
@@ -114,9 +114,6 @@ class Options:
         if self.int8_encoder:
             raise ValueError("--int8_encoder 1: the int8 encoder waits for ROADMAP "
                              "Queue 1 item 7")
-        if self.visualize:
-            raise ValueError("--visualize 1: the attention panel (eval/visualize.py) "
-                             "waits for ROADMAP Queue 1 item 8")
         if self.ss_impl not in _RECNET:
             raise ValueError(f"--ss_impl must be one of {sorted(_RECNET)}, got "
                              f"{self.ss_impl!r}")

@@ -22,6 +22,7 @@ from __future__ import annotations
 import copy
 import os
 import sys
+import types
 from typing import Optional
 
 import numpy as np
@@ -167,6 +168,61 @@ def eval_lfw(opts: Options, encoder, recnet, ocl_num: int, *,
                                       os.path.join(dump_wrong_to, f"{sub}_ocl{ocl_num}"))
                 print(f"[save_wrong] ocl{ocl_num} {sub}: {n} files", file=sys.stderr)
     return float(res_new.mean_accuracy), float(res_raw.mean_accuracy)
+
+
+def log_attention_visual(opts: Options, encoder, recnet, logger, iteration: int) -> None:
+    """Render and log the attention panel of the first ocl-1 eval batch
+    (ffrnet_tpu/train.py:315-366; the reference's visualize(),
+    lfw/lfw_eval.py:164-223, defined there but never called): clean|masked
+    4-column panels (image, 67x67 M_space grid, M_channel matrix,
+    argmax-channel feature map) to TensorBoard and
+    ckpt_dir/visuals/attention_{iter:07d}.png.
+
+    M_space and M_channel come from the RecNet called with a label in eval
+    mode: the path that holds M_channel (the fused kernel keeps it on
+    chip). A RecNet in train mode goes back to it after."""
+    from ffrnet_torch.eval.visualize import visualize_pair
+    from ffrnet_torch.ops.nn import images_to_unit_range
+
+    n_rows = min(opts.batch_size, 8)
+    device = encoder.input_layer[0].weight.device
+    batches, _ = make_eval_batches(opts, 1, n_rows, device=device)
+    batch = next(batches)
+    batches.close()
+    img1 = batch["imgs"][:, 0] if "imgs" in batch else batch["img1"]
+    img2 = batch["imgs"][:, 1] if "imgs" in batch else batch["img2"]
+    i1, i2 = images_to_unit_range(img1), images_to_unit_range(img2)
+    was_training = recnet.training
+    recnet.eval()
+    try:
+        with torch.inference_mode():
+            both = torch.cat([i1, i2]).permute(0, 3, 1, 2).contiguous()
+            fm, _ = encoder(both)
+            lab = torch.zeros((both.shape[0],), dtype=torch.long, device=device)  # head unused
+            out = recnet(fm, lab)
+    finally:
+        recnet.train(was_training)
+
+    def host(t):
+        return t.float().cpu().numpy()
+
+    fm, m_space, m_channel = host(fm.permute(0, 2, 3, 1)), host(out.m_space), host(out.m_channel)
+    i1, i2 = host(i1), host(i2)
+    n = i1.shape[0]
+
+    def half(sl):
+        return types.SimpleNamespace(m_space=m_space[sl], m_channel=m_channel[sl])
+
+    panel = visualize_pair(i1, half(slice(None, n)), i2, half(slice(n, None)), fm[:n], fm[n:],
+                           n_rows=n_rows)
+    logger.record_single_image(panel, "attention/ocl1")
+    try:
+        from PIL import Image
+
+        Image.fromarray(panel).save(os.path.join(opts.ckpt_dir, "visuals",
+                                                 f"attention_{iteration:07d}.png"))
+    except Exception as e:  # noqa: BLE001 — the PNG dump is best effort; the panel is not
+        print(f"[visualize] PNG dump failed: {e}", file=sys.stderr)
 
 
 def train(opts: Options) -> None:
@@ -322,6 +378,8 @@ def _train(opts: Options, guard: PreemptionGuard) -> None:
                     logger.record_scalar({"acc": acc}, f"test_acc/ocl{ocl}")
                     logger.record_scalar({"acc_new": acc_new}, f"test_acc/ocl{ocl}")
                     print(f"test result ocl{ocl}: acc_new {acc_new:.4f} acc {acc:.4f}")
+                if opts.visualize:
+                    log_attention_visual(opts, encoder, state.model, logger, cur_iters)
                 timer.update_time("Eval")
             if opts.debug:
                 break

@@ -265,3 +265,47 @@ def test_cuda_short_training_run(cuda):
             losses.append(float(m["TotalLoss"]))
         assert np.isfinite(losses).all() and losses[-1] < losses[0]
         assert state.step == 5
+
+
+@pytest.mark.cuda
+def test_cuda_service_matches_direct_embed(cuda):
+    """The micro-batching service on the card (fused fp32, TF32 off): 12
+    uint8 and float groups from 4 threads, each result against a direct
+    embed of the same faces (cuDNN may plan each batch size differently:
+    1e-4 abs + rel), and the kernels launched only by the collector: 24
+    se_gating and 1 channel_branch per dispatched batch."""
+    import threading
+
+    from ffrnet_torch.api import FFRNet
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ffrnet_torch.serving import EmbeddingService
+
+    model = FFRNet.random(seed=0, device=cuda)
+    faces = np.random.default_rng(9).integers(0, 256, (24, 112, 112, 3), dtype=np.uint8)
+    want = [t.cpu() for t in model.embed(faces)]
+    groups = [(2 * i, 2 * i + 2) for i in range(12)]
+    with EmbeddingService(model, max_batch=16, max_delay_s=0.005) as svc:
+        svc.warmup()
+        reset_launch_counts()
+        outs = [None] * len(groups)
+
+        def client(k):
+            for j in range(k, len(groups), 4):
+                a, b = groups[j]
+                x = faces[a:b] if j % 2 else (faces[a:b] / 255.0 - 0.5) / 0.5
+                outs[j] = [t.cpu() for t in svc.submit(x).result(timeout=120)]
+
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    assert not any(t.is_alive() for t in threads)
+    for (a, b), (raw, rect) in zip(groups, outs):
+        torch.testing.assert_close(raw, want[0][a:b], atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(rect, want[1][a:b], atol=1e-4, rtol=1e-4)
+    n = svc.stats.batches
+    assert svc.stats.faces == 24 and svc.stats.errors == 0 and n >= 2
+    assert (counts["se_gating"], counts["channel_branch"], counts["self_similarity"]) == (24 * n, n, 0)

@@ -73,7 +73,7 @@ def test_flag_surface_matches_jax(argv, tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (["--mesh_data", "2"], "item 6"), (["--mesh_model", "2"], "item 6"),
     (["--ckpt_backend", "orbax"], "item 6"), (["--int8_encoder", "1"], "item 7"),
-    (["--visualize", "1"], "item 8"), (["--ss_impl", "triton"], "ss_impl")])
+    (["--ss_impl", "triton"], "ss_impl")])
 def test_unported_flags_raise(argv, item):
     with pytest.raises(ValueError, match=item):
         parse_args(argv, make_dirs=False)

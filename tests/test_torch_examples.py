@@ -1,0 +1,90 @@
+"""The port's quickstarts (ffrnet_torch.examples) and its serving bench
+(ffrnet_torch.tools.bench_serving), run in-process on the CPU as
+tests/test_examples.py runs examples/."""
+
+import runpy
+import sys
+
+import pytest
+import torch
+
+torch.set_num_threads(1)
+
+
+def _run(module, argv):
+    old_argv = sys.argv
+    sys.argv = [module] + argv
+    try:
+        runpy.run_module(module, run_name="__main__", alter_sys=False)
+    finally:
+        sys.argv = old_argv
+
+
+def test_embed_and_verify_example(capsys):
+    _run("ffrnet_torch.examples.embed_and_verify", ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "(no weights given: random init" in out
+    assert "raw embeddings (8, 512), rectified (8, 512)" in out
+    assert "pair scores:" in out
+
+
+@pytest.fixture
+def tiny_service(monkeypatch):
+    """One 16-bucket in place of max_batch=256's ladder: the same pad ->
+    dispatch -> slice path at a CPU test's cost (tests/test_examples.py)."""
+    from ffrnet_torch.serving import service as svc_mod
+
+    orig = svc_mod.EmbeddingService.__init__
+
+    def tiny(self, model, max_batch=256, **kw):
+        kw.pop("buckets", None)
+        orig(self, model, max_batch=16, buckets=(16,), **kw)
+
+    monkeypatch.setattr(svc_mod.EmbeddingService, "__init__", tiny)
+
+
+def test_serve_http_example(tiny_service, monkeypatch, capsys):
+    """Startup (warmup, HTTP bind on a free port) and the clean shutdown
+    after a Ctrl-C, simulated in the example's wait."""
+    import time as time_mod
+
+    def fake_sleep(_):
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(time_mod, "sleep", fake_sleep)
+    _run("ffrnet_torch.examples.serve_http", ["0", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "serving on :" in out
+    assert "served 0 faces in 0 dispatches" in out
+
+
+def test_examples_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    for module in ("ffrnet_torch.examples.embed_and_verify", "ffrnet_torch.examples.serve_http"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            _run(module, [])
+
+
+@pytest.mark.parametrize("wire", ["float32", "uint8"])
+def test_bench_serving_smoke(wire, capsys):
+    from ffrnet_torch.tools import bench_serving
+
+    out = bench_serving.main(["--device", "cpu", "--clients", "2", "--group", "2",
+                              "--seconds", "0.5", "--max_batch", "4", "--buckets", "4",
+                              "--dtype", "fp32", "--wire", wire])
+    assert out["metric"] == "served_faces_per_sec" and out["device"] == "cpu"
+    assert out["value"] > 0 and out["dispatches"] >= 1 and out["client_errors"] == 0
+    assert out["latency_ms_p50"] is not None and out["wire"] == wire
+    assert 0 <= out["padded_frac"] < 1
+    assert set(out) == {"metric", "value", "unit", "clients", "group", "requests",
+                        "latency_ms_p50", "latency_ms_p99", "client_errors", "dispatches",
+                        "mean_batch", "padded_frac", "wire", "encoder", "device"}
+
+
+@pytest.mark.parametrize("encoder", ["int8", "int8_static", "int8_all"])
+def test_bench_serving_int8_waits_for_item_7(encoder):
+    from ffrnet_torch.tools import bench_serving
+
+    with pytest.raises(ValueError, match="Queue 1 item 7"):
+        bench_serving.main(["--device", "cpu", "--encoder", encoder])

@@ -212,7 +212,10 @@ def test_import_leaves_jax_out():
             "ffrnet_torch.config, ffrnet_torch.data.pipeline, ffrnet_torch.data.native, "
             "ffrnet_torch.checkpoint.store, ffrnet_torch.training.feature_cache, "
             "ffrnet_torch.utils.logger, ffrnet_torch.utils.timer, ffrnet_torch.utils.profiling, "
-            "ffrnet_torch.eval.runner; "
+            "ffrnet_torch.eval.runner, ffrnet_torch.eval.search, ffrnet_torch.eval.visualize, "
+            "ffrnet_torch.serving, ffrnet_torch.serving.service, ffrnet_torch.serving.http, "
+            "ffrnet_torch.tools.bench_serving, ffrnet_torch.utils.image, "
+            "ffrnet_torch.examples.embed_and_verify, ffrnet_torch.examples.serve_http; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'ffrnet_tpu')); print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
