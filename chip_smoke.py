@@ -6,7 +6,7 @@ Phases, each printing its own lines; any failure raises and the script
 exits non-zero without a result line:
 
   1. device   the card's name and power limit (fails without a card)
-  2. build    the four kernel libraries from ffrnet_torch/csrc, one nvcc
+  2. build    the five kernel libraries from ffrnet_torch/csrc, one nvcc
               each for sm_90a, all at once
   3. kernels  each kernel vs its plain PyTorch version at the main path's
               shapes, N=64, fp32 (TF32 off) and bf16, with the tolerances;
@@ -16,7 +16,10 @@ exits non-zero without a result line:
               x8); self_similarity at N=256 (also x100) and on every C of
               64, 192, 512 by HW of 16, 49, 64 by N of 1, 3, 64, with a zero
               sample and a zero channel row, ss_channel exactly symmetric;
-              the two warps on 250x250x3 noise, to 112x112 and 112x96
+              the two warps on 250x250x3 noise, to 112x112 and 112x96;
+              int8_conv at every int8 site shape of IR-SE50 and RecNet, N=1,
+              3 and 64, fp32 and bf16 outputs, with and without bias, to the
+              bit; a zero map, operands at +-127 and a misaligned input
   4. main     FFRNet.random(seed=0) embed / verify / evaluate in both RecNet
               configurations (fused channel branch; self-similarity kernel),
               plus a BN-folded model; whole-path parity with the CPU
@@ -66,6 +69,17 @@ exits non-zero without a result line:
               dispatched; single-face latency at one client; a short
               ss_kernel load; the launches of each counted window checked
               exactly against the batches dispatched
+ 11. int8     FFRNet.prepare(fold_bn=True, quantize_int8="encoder" / "all")
+              in bf16 and fp32, dynamic and calibrated (calibrate_int8 on 8
+              faces): int8 vs the fp32 float model on held-out faces, static
+              vs dynamic on the calibration faces, the card vs the CPU, the
+              launches of one embed exactly; EmbeddingService + HTTP with the
+              int8_static encoder; two --int8_encoder 1 driver runs (raw-image
+              steps with the eval on the float encoder; a bf16 feature-cache
+              build and its fingerprint); int8 embed faces/s at N=256 beside
+              bf16 and fp32, N=1 latency, and int8_conv's time per encoder
+              forward beside its bound, its twin and cuDNN's bf16 convolutions
+              of the same shapes (a yardstick, not the same function)
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit as nvidia-smi gives them, and the result line
@@ -93,6 +107,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12
+INT8_OPS_PER_S = 1979e12
 
 KERNELS = {
     "se_gating": ("ffrnet_torch/csrc/se_gating.cu", "ffrnet_tpu/ops/pallas/se_gating.py:55"),
@@ -102,8 +117,25 @@ KERNELS = {
                        "ffrnet_tpu/ops/pallas/channel_branch.py:136"),
     "warp_affine_full": ("ffrnet_torch/csrc/warp.cu", "ffrnet_tpu/ops/pallas/warp.py:88"),
     "warp_affine_band": ("ffrnet_torch/csrc/warp.cu", "ffrnet_tpu/ops/pallas/warp.py:182"),
+    # XLA's int8 conv (and :169, its int8 dot); no Pallas original
+    "int8_conv": ("ffrnet_torch/csrc/int8_conv.cu", "ffrnet_tpu/ops/quant.py:143"),
 }
 WARPS = ("warp_affine_full", "warp_affine_band")
+# (Cin, Cout, input H = W, window, stride, padding) of every int8 site shape
+# of IR-SE50 at 112x112 and of RecNet (7x7 maps reflect-padded to 9x9
+# outside the conv); Cin 0 is the encoder's output Linear, K = 25088
+INT8_SITES = [(64, 64, 112, 3, 1, 1), (64, 64, 112, 3, 2, 1), (64, 64, 56, 3, 1, 1),
+              (64, 128, 56, 3, 1, 1), (128, 128, 56, 3, 2, 1), (64, 128, 56, 1, 2, 0),
+              (128, 128, 28, 3, 1, 1), (128, 256, 28, 3, 1, 1), (256, 256, 28, 3, 2, 1),
+              (128, 256, 28, 1, 2, 0), (256, 256, 14, 3, 1, 1), (256, 512, 14, 3, 1, 1),
+              (512, 512, 14, 3, 2, 1), (256, 512, 14, 1, 2, 0), (512, 512, 7, 3, 1, 1),
+              (0, 512, 1, 1, 1, 0),
+              (561, 256, 9, 3, 1, 0), (256, 256, 9, 3, 1, 0), (256, 128, 9, 3, 1, 0),
+              (128, 128, 9, 3, 1, 0), (128, 49, 9, 3, 1, 0), (49, 49, 9, 3, 1, 0),
+              (1024, 512, 9, 3, 1, 0), (512, 512, 9, 3, 1, 0), (1536, 512, 9, 3, 1, 0)]
+# int8 sites per forward: IR-SE50's 48 body convs, 3 projection shortcuts
+# and the output Linear; RecNet's conv chains
+INT8_ENCODER_SITES, INT8_RECNET_SITES = 52, 15
 # (H, C, units) of the IR-SE50 stages: 24 SE gates per encoder forward
 SE_STAGES = ((56, 64, 3), (28, 128, 4), (14, 256, 14), (7, 512, 3))
 # tolerances: fp32 sums in another order (512-term for channel_branch);
@@ -281,8 +313,78 @@ def phase_kernels(model, dev):
         e = check_channel_branch(model, dev, dname, dt, g, n)
         if dname == "fp32":
             errs["channel_branch"] = e
+    errs["int8_conv"] = check_int8_conv(dev, g)
     torch.cuda.synchronize()
     return errs
+
+
+def int8_case(site, n, g, dev, fill=None):
+    """Random int8 operands of one site shape as the kernel takes them
+    (to_nhwc, pack_weight), a deq and a bias; `fill` sets every activation
+    to it and every weight to 127 (+-127: the largest accumulators)."""
+    from ffrnet_torch.ops.kernels.int8_conv import pack_weight, to_nhwc
+
+    cin, cout, h, k, _, _ = site
+    x = torch.randint(-127, 128, (n, 25088) if cin == 0 else (n, cin, h, h), generator=g,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (cout, 25088) if cin == 0 else (cout, cin, k, k), generator=g,
+                      dtype=torch.int8)
+    if fill is not None:
+        x.fill_(fill)
+        w.fill_(127)
+    deq = torch.rand(cout, generator=g) * 1e-4
+    bias = torch.randn(cout, generator=g)
+    return to_nhwc(x.to(dev)), pack_weight(w.to(dev)), deq.to(dev), bias.to(dev)
+
+
+def check_int8_conv(dev, g):
+    """int8_conv vs its twin (the integer product in float64, exact, then
+    the same two fp32 roundings) at every int8 site shape, N = 1, 3 and 64,
+    fp32 and bf16 outputs, with bias (and without at N = 3): equal to the
+    bit; then a zero map and operands at +-127 (accumulators of 127^2 K) at
+    the first encoder shape, the Linear, C = 561 and C = Cout = 49, and an
+    input view 8 bytes off a 16-byte boundary. Returns the largest error."""
+    from ffrnet_torch.ops.kernels.int8_conv import int8_conv, int8_conv_plain
+
+    def same(what, args, stride, pad, dt):
+        got = int8_conv(*args, stride=stride, padding=pad, out_dtype=dt)
+        want = int8_conv_plain(*args, stride=stride, padding=pad, out_dtype=dt)
+        if got.dtype != dt or got.shape != want.shape or not torch.equal(got, want):
+            err = (got.float() - want.float()).abs().max().item()
+            raise AssertionError(f"int8_conv {what}: not bit-equal to the twin "
+                                 f"(max_abs_err {err:.3e})")
+        return (got.float() - want.float()).abs().max().item()
+
+    t0, calls, worst = time.perf_counter(), 0, 0.0
+    for site in INT8_SITES:
+        for n in (1, 3, 64):
+            xq, wp, deq, bias = int8_case(site, n, g, dev)
+            for dt in (torch.float32, torch.bfloat16):
+                for b in ((bias, None) if n == 3 else (bias,)):
+                    worst = max(worst, same(f"{site} N={n} {dt} bias={b is not None}",
+                                            (xq, wp, deq, b), site[4], site[5], dt))
+                    calls += 1
+    edges = [INT8_SITES[0]] + [s for s in INT8_SITES if s[0] in (0, 561, 49)]
+    for site in edges:
+        for fill in (0, 127, -127):
+            args = int8_case(site, 3, g, dev, fill=fill)
+            for dt in (torch.float32, torch.bfloat16):
+                worst = max(worst, same(f"{site} filled {fill}", args, site[4], site[5], dt))
+                calls += 1
+    site = INT8_SITES[-1]
+    xq, wp, deq, bias = int8_case(site, 3, g, dev)
+    buf = torch.zeros(xq.numel() + 8, dtype=torch.int8, device=dev)
+    view = buf[8:].view(xq.shape)
+    view.copy_(xq)
+    worst = max(worst, same("misaligned input", (view, wp, deq, bias), site[4], site[5],
+                            torch.float32))
+    torch.cuda.synchronize()
+    log("kernels", f"int8_conv: {len(INT8_SITES)} site shapes (16 of IR-SE50 with the Linear, 9 of "
+        f"RecNet with C 561/49 and Cout 49) x N 1/3/64 x fp32/bf16 out, with and without bias, "
+        f"a zero map, operands at +-127 (|acc| up to 127^2 K), a misaligned input: {calls + 1} "
+        f"calls bit-equal to the twin (max_abs_err {worst:.1e}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return worst
 
 
 def check_self_similarity(dev, dname, dt, g):
@@ -595,7 +697,7 @@ def phase_counts(counts, ingest):
         expected = {"se_gating": 24 * forwards,
                     "channel_branch": forwards if name.startswith("fused") else 0,
                     "self_similarity": forwards if name.startswith("ss_kernel") else 0,
-                    "warp_affine_full": 0, "warp_affine_band": 0}
+                    "warp_affine_full": 0, "warp_affine_band": 0, "int8_conv": 0}
         if c != expected:
             raise AssertionError(f"{name}: launch counts {c}, expected {expected} for "
                                  f"{forwards} forwards")
@@ -604,14 +706,14 @@ def phase_counts(counts, ingest):
         for k in total:
             total[k] += c[k]
     expected = {"se_gating": 48, "channel_branch": 2, "self_similarity": 0,
-                "warp_affine_full": 1, "warp_affine_band": 1}
+                "warp_affine_full": 1, "warp_affine_band": 1, "int8_conv": 0}
     if ingest != expected:
         raise AssertionError(f"ingest: launch counts {ingest}, expected {expected}")
     log("counts", f"ingest (fused): 2 guarded align calls + 2 forwards -> {ingest} (the band "
         f"kernel for the 64 faces, the full kernel for the extreme batch)")
     for k in total:
         total[k] += ingest[k]
-    missing = [k for k, v in total.items() if v == 0]
+    missing = [k for k, v in total.items() if v == 0 and k != "int8_conv"]  # phase 11's
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     return total
@@ -1043,7 +1145,7 @@ def train_counts(dev):
             torch.cuda.synchronize()
             c = launch_counts()
             expected = {"se_gating": want, "self_similarity": ss, "channel_branch": 0,
-                        "warp_affine_full": 0, "warp_affine_band": 0}
+                        "warp_affine_full": 0, "warp_affine_band": 0, "int8_conv": 0}
             if c != expected:
                 raise AssertionError(f"train {name} {what}: launches {c}, expected {expected}")
             out[name, what] = c
@@ -1570,15 +1672,17 @@ def single_face_latency(base, pool_u8, samples):
     return np.asarray(out)
 
 
-def check_serve_counts(name, counts, batches, kernel):
+def check_serve_counts(name, counts, batches, kernel, int8_sites=0):
     expected = {k: 0 for k in KERNELS}
     expected["se_gating"] = 24 * batches
     expected[kernel] = batches
+    expected["int8_conv"] = int8_sites * batches
     if counts != expected:
         raise AssertionError(f"serve {name}: launch counts {counts}, expected {expected} for "
                              f"{batches} dispatched batches")
-    log("serve", f"{name}: {batches} dispatched batches -> {counts} (24 se_gating and one "
-        f"{kernel} per batch)")
+    int8 = f" and {int8_sites} int8_conv" if int8_sites else ""
+    log("serve", f"{name}: {batches} dispatched batches -> {counts} (24 se_gating{int8} and "
+        f"one {kernel} per batch)")
 
 
 def check_stats(name, base, svc, faces, requests):
@@ -1631,12 +1735,17 @@ def serve_one(name, model, pool_u8, seconds, clients, card, gallery=False, laten
     """One model behind EmbeddingService(max_batch=256) + the HTTP front on
     127.0.0.1:0: warmup, the direct N=1 latency, then the counted window
     (the load, /verify and the gallery, single-face latency), then the
-    direct embed at the load's mean batch. -> the launch counts."""
+    direct embed at the load's mean batch. -> the launch counts. bf16 and
+    int8 rows are held to the direct embed by cosine (SERVE_BF16_MIN_COS):
+    where a float layer rounds otherwise at another batch size, an int8
+    level can move."""
     from ffrnet_torch.eval.lfw import pair_cosine
+    from ffrnet_torch.models.quantize import quantized_sites
     from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
     from ffrnet_torch.serving import EmbeddingHTTPServer, EmbeddingService
 
-    bf16 = model.dtype == torch.bfloat16
+    int8_sites = len(quantized_sites(model.encoder)) + len(quantized_sites(model.recnet))
+    bf16 = model.dtype == torch.bfloat16 or int8_sites > 0  # held by cosine
     want = np.stack([t.float().cpu().numpy() for t in model.embed(pool_u8)])  # direct, N=64
     svc = EmbeddingService(model, max_batch=256)
     try:
@@ -1684,7 +1793,8 @@ def serve_one(name, model, pool_u8, seconds, clients, card, gallery=False, laten
     finally:
         svc.close()
     check_serve_counts(name, counts, svc.stats.batches,
-                       "self_similarity" if model.cfg.ss_impl == "kernel" else "channel_branch")
+                       "self_similarity" if model.cfg.ss_impl == "kernel" else "channel_branch",
+                       int8_sites)
     n = max(1, round(mean))
     batch = np.resize(pool_u8, (n,) + pool_u8.shape[1:])
     t = host_ms(lambda: model.embed(batch), samples=10)
@@ -1713,6 +1823,311 @@ def phase_serve(models, card):
     return total
 
 
+# ----------------------------------------------------------------- phase 11
+
+# int8 vs the fp32 float model, held-out faces: the JAX package's bound
+# (tests/test_quant.py); static vs dynamic on the calibration faces
+# (tests/test_quant.py:128)
+INT8_MIN_COS_FLOAT = 0.99
+INT8_MIN_COS_STATIC = 0.999
+# the same int8 model on the card and on the CPU: both products exact, but
+# cuDNN's float layers (stem, BN, SE, PReLU) round otherwise than the CPU's,
+# an int8 level moves now and then and the move spreads through later
+# sites; measured on an H100: fp32 raw 0.99963, rectified 0.99999; bf16
+# 1.000000 to six places (its 8-bit roundings hide most fp32 differences)
+INT8_MIN_COS_CPU = {"fp32": 0.999, "bf16": 0.99}
+INT8_HELD, INT8_DRIVER_BATCH, INT8_TIME_N = 64, 128, 256
+INT8_ARMS = ("bf16 encoder dynamic", "bf16 encoder static", "bf16 all dynamic",
+             "bf16 all static", "fp32 encoder dynamic", "fp32 encoder static")
+
+
+def min_cos(a, b):
+    return torch.nn.functional.cosine_similarity(a.float().cpu(), b.float().cpu(),
+                                                 dim=1).min().item()
+
+
+def int8_models(dev):
+    """Float references (fp32, bf16; BNs folded) and the int8 arms of
+    FFRNet.random(seed=0): prepare(fold_bn=True, dtype, quantize_int8=mode),
+    dynamic, and calibrate_int8 on 8 uint8 faces (seed 110)."""
+    from ffrnet_torch.api import FFRNet
+
+    base = FFRNet.random(seed=0, device=dev)
+    cal = torch.randint(0, 256, (8, 112, 112, 3), generator=gen(110), dtype=torch.uint8).numpy()
+    models = {"fp32 float": base.prepare(fold_bn=True),
+              "bf16 float": base.prepare(fold_bn=True, dtype=torch.bfloat16)}
+    t0 = time.perf_counter()
+    for name in INT8_ARMS:
+        dname, mode, scales = name.split()
+        dt = torch.bfloat16 if dname == "bf16" else None
+        if scales == "dynamic":
+            models[name] = base.prepare(fold_bn=True, dtype=dt, quantize_int8=mode)
+        else:
+            models[name] = models[f"{dname} {mode} dynamic"].calibrate_int8([cal])
+    log("int8", f"models: IR-SE50 + RecNet (C=512), seed 0, BN folded; arms {INT8_ARMS}; "
+        f"calibrate_int8 on 8 faces (seed 110); prepared in {time.perf_counter() - t0:.1f} s")
+    return models, cal
+
+
+def int8_checks(models, cal, dev):
+    """Sites, accuracy against float, static against dynamic, the card
+    against the CPU, and the exact launches of one embed per arm. -> the
+    launch counts of the counted embeds, summed."""
+    from ffrnet_torch.api import FFRNet
+    from ffrnet_torch.models.quantize import quantized_sites
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    held = torch.randint(0, 256, (INT8_HELD, 112, 112, 3), generator=gen(111),
+                         dtype=torch.uint8).to(dev)
+    ref = models["fp32 float"].embed(held)
+    total = {k: 0 for k in KERNELS}
+    for name in INT8_ARMS:
+        m = models[name]
+        sites = (len(quantized_sites(m.encoder)), len(quantized_sites(m.recnet)))
+        want_sites = (INT8_ENCODER_SITES, INT8_RECNET_SITES if " all " in name else 0)
+        static = [s.x_scale is not None for _, s in quantized_sites(m.encoder)]
+        if sites != want_sites or set(static) != {name.endswith("static")}:
+            raise AssertionError(f"int8 {name}: sites {sites}, static scales {set(static)}")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = m.embed(held)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        expected = {k: 0 for k in KERNELS}
+        expected.update(se_gating=24, channel_branch=1, int8_conv=sum(sites))
+        if counts != expected:
+            raise AssertionError(f"int8 {name}: one embed launched {counts}, expected {expected}")
+        for k in total:
+            total[k] += counts[k]
+        for t in out:
+            if tuple(t.shape) != (INT8_HELD, 512) or not torch.isfinite(t).all():
+                raise AssertionError(f"int8 {name}: embedding {tuple(t.shape)} not finite")
+        cos = [min_cos(a, b) for a, b in zip(out, ref)]
+        if min(cos) < INT8_MIN_COS_FLOAT:
+            raise AssertionError(f"int8 {name} vs fp32 float: min cosine {cos} below "
+                                 f"{INT8_MIN_COS_FLOAT}")
+        log("int8", f"{name}: {sites[0]} encoder + {sites[1]} RecNet int8 sites; one embed of "
+            f"{INT8_HELD} held-out faces launched {counts['int8_conv']} int8_conv, 24 se_gating, 1 "
+            f"channel_branch; vs the fp32 float model min cosine raw {cos[0]:.5f} rect "
+            f"{cos[1]:.5f} (bound {INT8_MIN_COS_FLOAT})")
+    for key in ("bf16 encoder", "bf16 all", "fp32 encoder"):
+        cos = [min_cos(a, b) for a, b in zip(models[f"{key} static"].embed(cal),
+                                             models[f"{key} dynamic"].embed(cal))]
+        if min(cos) < INT8_MIN_COS_STATIC:
+            raise AssertionError(f"int8 {key}: static vs dynamic min cosine {cos} below "
+                                 f"{INT8_MIN_COS_STATIC}")
+        log("int8", f"{key}: static vs dynamic on the 8 calibration faces: min cosine raw "
+            f"{cos[0]:.6f} rect {cos[1]:.6f} (bound {INT8_MIN_COS_STATIC})")
+    for key in ("fp32 encoder static", "bf16 all static"):
+        m = models[key]
+        cpu = FFRNet(m.encoder, m.recnet, m.cfg, "cpu").prepare()
+        cos = [min_cos(a, b) for a, b in zip(m.embed(held[:4]), cpu.embed(held[:4].cpu()))]
+        bound = INT8_MIN_COS_CPU[key.split()[0]]
+        if min(cos) < bound:
+            raise AssertionError(f"int8 {key}: card vs CPU min cosine {cos} below {bound}")
+        log("int8", f"{key}: card vs CPU (the twin), 4 faces: min cosine raw {cos[0]:.6f} rect "
+            f"{cos[1]:.6f} (bound {bound})")
+    return total
+
+
+def int8_driver(dev, card):
+    """python -m ffrnet_torch.train --int8_encoder 1 on phase 9's JPEG tree:
+    fp32 raw-image steps (batch 128, 2 steps, the eval at step 2 on the
+    float encoder), then a bf16 --cache_features 1 run (the cache built by
+    the int8 encoder, 2 RecNet-only steps), each call's launches checked
+    exactly. -> the launch counts of the steps and the build, summed."""
+    import tempfile
+
+    import ffrnet_torch.train as T
+    from ffrnet_torch.config import parse_args
+    from ffrnet_torch.data.datasets import CasiaPairs
+    from ffrnet_torch.training.feature_cache import cache_fingerprint
+
+    total = {k: 0 for k in KERNELS}
+    probe = DriverProbe()
+    try:
+        with tempfile.TemporaryDirectory(prefix="ffrnet_int8_") as root:
+            tree = os.path.join(root, "faces")
+            driver_tree(tree)
+            short = ("--int8_encoder", "1", "--batch_size", str(INT8_DRIVER_BATCH),
+                     "--total_epochs", "1", "--save_freq", "1000")
+            argv = driver_argv(tree, os.path.join(root, "raw"), *short, "--eval_freq", "2")
+            t = time.perf_counter()
+            T.main(argv)
+            raw_s = time.perf_counter() - t
+            if len(probe.steps) != 2 or len(probe.evals) != 3 * -(-DRIVER_PAIRS // INT8_DRIVER_BATCH):
+                raise AssertionError(f"int8 driver: {len(probe.steps)} steps, "
+                                     f"{len(probe.evals)} eval batches")
+            check_driver_counts("int8 raw-image train_step", probe.steps,
+                                {"se_gating": 24, "int8_conv": INT8_ENCODER_SITES})
+            check_driver_counts("int8 run's eval batch (float encoder)", probe.evals,
+                                DRIVER_COUNTS["fused", "eval"])
+            for rec in probe.steps:
+                for k in total:
+                    total[k] += rec[1][k]
+            step_ms = [m for m, _ in probe.steps]
+            probe.reset()
+            argv_c = driver_argv(tree, os.path.join(root, "cached"), *short, "--eval_freq", "0",
+                                 "--compute_dtype", "bf16", "--cache_features", "1")
+            opts_c = parse_args(argv_c, make_dirs=False)
+            T.main(argv_c)
+            (build_ms, _), = probe.builds
+            batches = -(-DRIVER_IDS * DRIVER_PER_ID // INT8_DRIVER_BATCH)
+            # the build's encoder is made inside it: its calibration pass (8
+            # images, float sites) launches one forward's 24 SE gates
+            check_driver_counts("int8 bf16 feature-cache build", probe.builds,
+                                {"se_gating": 24 * (2 * batches + 1),
+                                 "int8_conv": 2 * INT8_ENCODER_SITES * batches})
+            check_driver_counts("cached step", probe.steps, {})
+            for k in total:
+                total[k] += probe.builds[0][1][k]
+            with open(os.path.join(opts_c.ckpt_dir, "feature_cache", "meta.json")) as f:
+                fp = json.load(f)["fingerprint"]
+            ds = CasiaPairs(opts_c.train_data, opts_c.train_img_list, use_native=False)
+            enc = T.load_encoder(opts_c, dev)
+            if fp != cache_fingerprint(ds, enc, "int8-static-v1") or fp == cache_fingerprint(ds, enc):
+                raise AssertionError("int8 driver: the cache's fingerprint is not the int8 build's")
+    finally:
+        probe.close()
+    log("int8", f"--int8_encoder 1: 2 fp32 raw-image steps ({', '.join(f'{m:.1f}' for m in step_ms)} "
+        f"ms, calibration and eval included in the run's {raw_s:.1f} s), eval on the float encoder; "
+        f"bf16 cache build by the int8 encoder in {build_ms / 1e3:.2f} s, fingerprint "
+        f"{fp[:12]}... differs from the float build's | {card}")
+    return total
+
+
+def int8_bound(calls):
+    """(bound_ms, bound_by) of int8_conv calls (xq, wp, deq, bias, stride,
+    padding, out_dtype): the int8 input, the int8 weights and the output
+    moved once at the HBM rate, or 2 N Ho Wo Cout KH KW C operations at
+    the int8 tensor-core rate, whichever is larger for the whole set."""
+    nbytes = ops = 0
+    for xq, wp, deq, bias, stride, pad, out_dtype in calls:
+        n, h, w, cp = xq.shape
+        _, kh, kw, _ = wp.shape
+        cout = deq.shape[0]
+        ho, wo = (h + 2 * pad - kh) // stride + 1, (w + 2 * pad - kw) // stride + 1
+        ops += 2 * n * ho * wo * cout * kh * kw * cp
+        nbytes += (xq.numel() + cout * kh * kw * cp + n * cout * ho * wo * out_dtype.itemsize
+                   + 4 * cout * (1 + (bias is not None)))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def int8_times(models, dev, card):
+    """Embed faces/s at N=256 (host uint8 in, both embeddings out, median of
+    10 batches) for every arm beside the float models, N=1 latency, and
+    int8_conv's device time over one encoder forward's 52 calls (recorded
+    from an fp32 and a bf16 embed at N=256) beside its bound, its twin and
+    cuDNN's bf16 convolutions of the same 51 shapes plus a bf16 F.linear
+    of the Linear's (a yardstick: another function). -> (ms, plain ms,
+    (bound_ms, bound_by)) of the fp32 forward's calls."""
+    import ffrnet_torch.ops.quant as Q
+    from ffrnet_torch.ops.kernels.int8_conv import int8_conv, int8_conv_plain
+
+    n = INT8_TIME_N
+    faces = torch.randint(0, 256, (n, 112, 112, 3), generator=gen(40), dtype=torch.uint8).numpy()
+    for name in ("fp32 float", "bf16 float") + INT8_ARMS:
+        t = host_ms(lambda: models[name].embed(faces), samples=10)
+        log("times", f"int8 phase embed {name} N={n}: median {np.median(t):.3f} ms/batch (max "
+            f"{t.max():.3f}, 10 samples), {n / np.median(t) * 1e3:.1f} faces/s | {card}")
+    for name in ("fp32 float", "fp32 encoder static", "bf16 float", "bf16 encoder static",
+                 "bf16 all static"):
+        t1 = host_ms(lambda: models[name].embed(faces[:1]), samples=50, warmup=5)
+        log("times", f"int8 phase embed {name} N=1 latency: p50 {np.median(t1):.3f} ms, p90 "
+            f"{np.percentile(t1, 90):.3f} ms (50 samples) | {card}")
+    recorded = {}
+    for dname in ("fp32", "bf16"):
+        calls = []
+
+        def record(xq, wp, deq, bias=None, *, stride=1, padding=0, out_dtype=torch.float32):
+            calls.append((xq, wp, deq, bias, stride, padding, out_dtype))
+            return int8_conv(xq, wp, deq, bias, stride=stride, padding=padding,
+                             out_dtype=out_dtype)
+
+        real, Q.int8_conv = Q.int8_conv, record
+        try:
+            models[f"{dname} encoder static"].embed(faces)
+        finally:
+            Q.int8_conv = real
+        if len(calls) != INT8_ENCODER_SITES:
+            raise AssertionError(f"int8 {dname}: {len(calls)} int8_conv calls per encoder forward")
+        recorded[dname] = calls
+
+    def run(fn, calls):
+        def go():
+            for xq, wp, deq, bias, stride, pad, dt in calls:
+                fn(xq, wp, deq, bias, stride=stride, padding=pad, out_dtype=dt)
+        return go
+
+    out = {}
+    for dname, calls in recorded.items():
+        kern, plain = run(int8_conv, calls), run(int8_conv_plain, calls)
+        p1, k1, k2, p2 = (cuda_ms(plain, iters=2, warmup=1), cuda_ms(kern, iters=10),
+                          cuda_ms(kern, iters=10), cuda_ms(plain, iters=2, warmup=1))
+        bound = int8_bound(calls)
+        out[dname] = (min(k1, k2), min(p1, p2), bound)
+        log("times", f"int8_conv {dname} out, one encoder forward's {len(calls)} calls at N={n}: "
+            f"kernel {k1:.4f}/{k2:.4f} ms, plain (float64 twin) {p1:.4f}/{p2:.4f} ms, bound "
+            f"{bound[0]:.4f} ms ({bound[1]}; {100 * bound[0] / min(k1, k2):.0f}%) | {card}")
+    # by shape, fp32 out: the kernel's share of each site's bound
+    shapes = {}
+    for c in recorded["fp32"]:
+        key = (tuple(c[0].shape), tuple(c[1].shape), c[4], c[5])
+        shapes.setdefault(key, []).append(c)
+    for (xs, ws, stride, pad), calls in shapes.items():
+        t = cuda_ms(run(int8_conv, calls[:1]), iters=10)
+        b = int8_bound(calls[:1])
+        log("times", f"int8_conv x{xs} w{ws} stride {stride} pad {pad} (x{len(calls)} per "
+            f"forward): {t:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; {100 * b[0] / t:.0f}%)")
+    # yardstick: cuDNN's bf16 convolutions of the 51 conv shapes, NCHW, and
+    # a bf16 F.linear for the Linear (a float product, not the int8 one)
+    g = gen(112)
+    fns = []
+    for xq, wp, deq, _, stride, pad, _ in recorded["fp32"]:
+        nn_, h, w, cp = xq.shape
+        cout, kh, kw = deq.shape[0], wp.shape[1], wp.shape[2]
+        if h == 1:  # the Linear
+            x = torch.randn(nn_, cp, generator=g).to(dev, torch.bfloat16)
+            wt = torch.randn(cout, cp, generator=g).to(dev, torch.bfloat16)
+            fns.append(lambda x=x, wt=wt: torch.nn.functional.linear(x, wt))
+        else:
+            x = torch.randn(nn_, cp, h, w, generator=g).to(dev, torch.bfloat16)
+            wt = torch.randn(cout, cp, kh, kw, generator=g).to(dev, torch.bfloat16)
+            fns.append(lambda x=x, wt=wt, s=stride, p=pad: torch.nn.functional.conv2d(
+                x, wt, stride=s, padding=p))
+
+    def yard():
+        for f in fns:
+            f()
+
+    y = min(cuda_ms(yard, iters=10), cuda_ms(yard, iters=10))
+    log("times", f"yardstick cuDNN bf16 F.conv2d of the same 51 conv shapes + bf16 F.linear of the "
+        f"Linear's (NCHW, float products, not the same function): {y:.4f} ms | {card}")
+    del recorded, fns
+    torch.cuda.empty_cache()
+    return out["fp32"]
+
+
+def phase_int8(dev, card):
+    """-> (launch counts of phase 11's counted runs, (ms, plain ms, bound))."""
+    t0 = time.perf_counter()
+    models, cal = int8_models(dev)
+    total = int8_checks(models, cal, dev)
+    pool = torch.randint(0, 256, (SERVE_POOL, 112, 112, 3), generator=gen(60),
+                         dtype=torch.uint8).numpy()
+    for k, v in serve_one("int8_static fp32 (encoder)", models["fp32 encoder static"], pool,
+                          2.0, 8, card).items():
+        total[k] += v
+    for k, v in int8_driver(dev, card).items():
+        total[k] += v
+    times = int8_times(models, dev, card)
+    del models
+    torch.cuda.empty_cache()
+    log("int8", f"all int8 checks passed in {time.perf_counter() - t0:.1f} s")
+    return total, times
+
+
 # ---------------------------------------------------------------------- main
 
 
@@ -1739,6 +2154,13 @@ def main():
     phase_driver(dev, smi)
     for k, v in phase_serve(models, smi).items():
         counts[k] += v
+    int8_counts, int8_time = phase_int8(dev, smi)
+    for k, v in int8_counts.items():
+        counts[k] += v
+    if counts["int8_conv"] == 0:
+        raise AssertionError("int8_conv never launched on the int8 path")
+    times["int8_conv"], bound["int8_conv"] = int8_time[:2], int8_time[2]
+    library["int8_conv"] = None  # no PyTorch call computes the int8 product
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": counts[k],
          "max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],

@@ -40,9 +40,13 @@ from ffrnet_torch.eval.lfw import pair_cosine
 from ffrnet_torch.eval.runner import evaluate_pairs
 from ffrnet_torch.models.irse import build_backbone, check_state_dict
 from ffrnet_torch.models.optimize import fold_backbone_bn
+from ffrnet_torch.models.quantize import (calibrate_activation_scales,
+                                          calibrate_recnet_activation_scales,
+                                          quantize_encoder, quantize_recnet)
 from ffrnet_torch.models.recnet import RecNetConfig, build_recnet
 from ffrnet_torch.ops.align import ARCFACE_REF_PTS, align_faces
 from ffrnet_torch.ops.nn import images_to_unit_range
+from ffrnet_torch.ops.quant import has_int8_sites
 
 _DTYPES = (None, torch.float32, torch.bfloat16)
 # the 112x112 ArcFace frame: the 96x112 reference points shifted +8 in x
@@ -74,7 +78,8 @@ def resolve_device(device) -> torch.device:
 
 
 class FFRNet:
-    """Frozen IR-SE50 encoder + RecNet, inference only."""
+    """Frozen IR-SE50 encoder + RecNet, inference only (float, or int8
+    after prepare(quantize_int8=...))."""
 
     def __init__(self, encoder, recnet, cfg: RecNetConfig, device):
         self.encoder = encoder
@@ -113,20 +118,69 @@ class FFRNet:
         enc.load_state_dict(enc_sd)
         return cls(enc, rec, cfg, dev).prepare(fold_bn=fold_bn, dtype=dtype)
 
-    def prepare(self, *, fold_bn: bool = False, dtype=None) -> "FFRNet":
+    def prepare(self, *, fold_bn: bool = False, dtype=None, quantize_int8=False) -> "FFRNet":
         """A new FFRNet with the encoder's BNs folded and/or both networks
-        cast to `dtype` (torch.float32 or torch.bfloat16), on the device."""
+        cast to `dtype` (torch.float32 or torch.bfloat16), on the device.
+
+        `quantize_int8` (models/quantize.py; ffrnet_tpu/api.py:69-118):
+          True or "encoder": the encoder's body convs and output Linear;
+          "recnet": RecNet's conv chains; "all": both.
+        The order is fold, cast, quantize: the int8 scales come from the
+        weights served. Activations are quantized per batch until
+        `calibrate_int8` bakes static scales."""
+        q_mode = "encoder" if quantize_int8 is True else quantize_int8
+        if q_mode not in (False, "encoder", "recnet", "all"):
+            raise ValueError(f"quantize_int8 must be False/True/'encoder'/'recnet'/'all', "
+                             f"got {quantize_int8!r}")
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, got {dtype}")
+        if fold_bn and has_int8_sites(self.encoder):
+            raise ValueError(
+                "prepare(fold_bn=True) on an already-int8-quantized encoder: BN folding "
+                "rewrites float conv weights and cannot be applied to int8 sites. Fold before "
+                "quantizing (prepare(fold_bn=True, quantize_int8=True) from a float model "
+                "does both in the right order).")
         enc = fold_backbone_bn(self.encoder) if fold_bn else copy.deepcopy(self.encoder)
         rec = copy.deepcopy(self.recnet)
         enc = enc.to(device=self.device, dtype=dtype).eval()
         rec = rec.to(device=self.device, dtype=dtype).eval().collapse_channel_weights()
+        if q_mode in ("encoder", "all"):
+            enc = quantize_encoder(enc)
+        if q_mode in ("recnet", "all"):
+            rec = quantize_recnet(rec)
         model = FFRNet(enc, rec, self.cfg, self.device)
         if self.device.type == "cuda" and model.dtype == torch.float32:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         return model
+
+    def calibrate_int8(self, batches, *, margin: float = 1.0) -> "FFRNet":
+        """A new FFRNet with static activation scales baked into its int8
+        sites (ffrnet_tpu/api.py:120-175): no per-call amax reduce, and a
+        face's embedding no longer depends on its batchmates. Activations
+        beyond the calibrated range saturate at +/-127.
+
+        `batches`: (N, 112, 112, 3) BGR images, uint8 (normalized to
+        [-1, 1] first) or [-1, 1] float, host or device. One eager pass on
+        the model's device; an int8 RecNet calibrates on the feature maps
+        of the same batches, captured from the encoder's pass. Needs
+        prepare(quantize_int8=...) first."""
+        enc_q, rec_q = has_int8_sites(self.encoder), has_int8_sites(self.recnet)
+        if not (enc_q or rec_q):
+            raise ValueError("calibrate_int8 requires an int8-quantized model: call "
+                             "prepare(quantize_int8=...) first")
+        xb = [self._unit(b).to(self.dtype).permute(0, 3, 1, 2).contiguous() for b in batches]
+        featmaps = []
+        enc, rec = self.encoder, self.recnet
+        if enc_q:
+            enc = calibrate_activation_scales(enc, xb, margin=margin,
+                                              capture_featmaps=featmaps if rec_q else None)
+        elif rec_q:  # the float encoder gives RecNet's calibration inputs
+            with torch.inference_mode():
+                featmaps = [enc(x)[0] for x in xb]
+        if rec_q:
+            rec = calibrate_recnet_activation_scales(rec, featmaps, margin=margin)
+        return FFRNet(enc, rec, self.cfg, self.device)
 
     # ------------------------------------------------------------- inference
     def _on_device(self, images) -> torch.Tensor:

@@ -70,7 +70,10 @@ class Options:
     # 0: uint8 pixels cross to the card and are normalized there (the same
     # values, a quarter of the bytes); 1: float32 [-1, 1] from the host
     host_normalize: int = 0
-    int8_encoder: int = 0         # not ported: raises (ROADMAP Queue 1 item 7)
+    # 1: the frozen encoder in the step (or the feature-cache build) runs
+    # int8 with static scales calibrated on 8 training images; LFW eval
+    # keeps the float encoder (train.py::prepare_int8_encoder)
+    int8_encoder: int = 0
     # train
     seed: int = 123
     n_thread: int = 8
@@ -111,9 +114,6 @@ class Options:
             raise ValueError(f"--ckpt_backend {self.ckpt_backend}: the port writes the pth "
                              "store only; orbax-style sharded saves wait for ROADMAP "
                              "Queue 1 item 6")
-        if self.int8_encoder:
-            raise ValueError("--int8_encoder 1: the int8 encoder waits for ROADMAP "
-                             "Queue 1 item 7")
         if self.ss_impl not in _RECNET:
             raise ValueError(f"--ss_impl must be one of {sorted(_RECNET)}, got "
                              f"{self.ss_impl!r}")

@@ -14,6 +14,8 @@ reference Backbone's state-dict keys (`input_layer.*`, `body.{i}.*`, `bn.*`,
 
 The encoder runs in inference mode only (BN running stats, dropout off).
 Every SE gate goes through the `se_gating` wrapper, 24 per IR-SE50 forward.
+The body convs and the output Linear go through `ops.conv2d` / `ops.linear`,
+which run the int8 product where models/quantize.py put an int8 site.
 Flatten of an NCHW map is already the reference's C-major order.
 """
 
@@ -87,12 +89,12 @@ class BottleneckIR(nn.Module):
             sc = ops.stride_pool(x, self.stride)
         else:
             conv, bn = self.shortcut_layer
-            sc = _bn(bn, F.conv2d(x, conv.weight, conv.bias, stride=self.stride))
+            sc = _bn(bn, ops.conv2d(x, conv, stride=self.stride))
         r = self.res_layer
         y = _bn(r[0], x)
-        y = F.conv2d(y, r[1].weight, r[1].bias, stride=1, padding=1)
+        y = ops.conv2d(y, r[1], stride=1, padding=1)
         y = ops.prelu(y, r[2].weight, axis=1)
-        y = F.conv2d(y, r[3].weight, r[3].bias, stride=self.stride, padding=1)
+        y = ops.conv2d(y, r[3], stride=self.stride, padding=1)
         y = _bn(r[4], y)
         if len(r) > 5:
             y = r[5](y)
@@ -140,7 +142,7 @@ class Backbone(nn.Module):
         featmap = _bn(self.bn, y)
         out = self.output_layer
         h = _bn(out[0], y).flatten(1)  # dropout is off in inference
-        h = F.linear(h, out[3].weight, out[3].bias)
+        h = ops.linear(h, out[3])
         h = _bn(out[4], h)
         return featmap, ops.l2_norm_div(h, axis=1)
 

@@ -126,7 +126,7 @@ class ConvLayer(nn.Module):
         self.kernel_size = kernel_size
         self.scale = scale
         self.use_pad = use_pad
-        stride = 2 if scale == "down" else 1
+        self.stride = stride = 2 if scale == "down" else 1
         self.conv2d = nn.Conv2d(in_channels, out_channels, kernel_size,
                                 stride=stride,
                                 bias=norm_type in ("pixel", "none"))
@@ -138,8 +138,7 @@ class ConvLayer(nn.Module):
             x = F.interpolate(x, scale_factor=2, mode="nearest")
         if self.use_pad:
             x = ops.reflect_pad(x, self.kernel_size // 2)
-        c = self.conv2d
-        y = F.conv2d(x, c.weight, c.bias, stride=c.stride)
+        y = ops.conv2d(x, self.conv2d, stride=self.stride)  # an int8 site when quantized
         return self.relu(self.norm(y))
 
 

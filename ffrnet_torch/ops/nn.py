@@ -1,7 +1,9 @@
 """Primitive ops, NCHW, with the JAX package's numerics (ffrnet_tpu/ops/nn.py).
 
 Layout: feature maps are NCHW and conv weights OIHW, so convolutions are
-plain `F.conv2d`. Channel-wise ops take the channel axis explicitly.
+plain `F.conv2d`; `conv2d` / `linear` take the layer itself and dispatch
+an int8 site (ops/quant.py) to the int8 product. Channel-wise ops take the
+channel axis explicitly.
 Epsilons and rounding points follow `ffrnet_tpu.ops.nn`, which in turn
 follows the PyTorch reference modules.
 """
@@ -12,6 +14,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from ffrnet_torch.ops.quant import Int8Site, conv2d_int8, linear_int8
 
 # ---------------------------------------------------------------------------
 # Initializers (torch.Generator driven, PyTorch-equivalent)
@@ -41,6 +45,26 @@ def bias_uniform(shape, fan_in, *, generator, dtype=torch.float32):
     """Torch's default bias init: U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
     bound = 1.0 / math.sqrt(fan_in)
     return (torch.rand(shape, generator=generator, dtype=dtype) * 2 - 1) * bound
+
+
+# ---------------------------------------------------------------------------
+# Convolution / linear
+# ---------------------------------------------------------------------------
+
+
+def conv2d(x, site, *, stride=1, padding=0):
+    """The convolution of `site`: F.conv2d with an nn.Conv2d's weight and
+    bias, or the int8 product at an Int8Site (ffrnet_tpu/ops/nn.py:61)."""
+    if isinstance(site, Int8Site):
+        return conv2d_int8(x, site, stride=stride, padding=padding)
+    return F.conv2d(x, site.weight, site.bias, stride=stride, padding=padding)
+
+
+def linear(x, site):
+    """The Linear of `site`: F.linear, or the int8 product at an Int8Site."""
+    if isinstance(site, Int8Site):
+        return linear_int8(x, site)
+    return F.linear(x, site.weight, site.bias)
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,12 @@ include the card's work and the copy back, not a dispatch rate.
 
 Usage:
   python -m ffrnet_torch.tools.bench_serving [--clients 16] [--group 8]
-      [--seconds 10] [--max_batch 256] [--dtype fp32|bf16] [--device cuda]
-Prints one JSON line.
+      [--seconds 10] [--max_batch 256] [--dtype fp32|bf16]
+      [--encoder bf16|int8|int8_static|int8_all] [--device cuda]
+Prints one JSON line. The model is FFRNet.random(0) with its BNs folded;
+the int8 arms quantize the encoder (int8: dynamic scales; int8_static:
+scales calibrated on 16 faces) or, with int8_all, RecNet's conv chains too
+(calibrated), as ffrnet_tpu/tools/bench_serving.py:61-68 does.
 """
 
 from __future__ import annotations
@@ -37,22 +41,27 @@ def main(argv=None) -> dict:
     ap.add_argument("--dtype", default="bf16", choices=["fp32", "bf16"])
     ap.add_argument("--encoder", default="bf16",
                     choices=["bf16", "int8", "int8_static", "int8_all"],
-                    help="encoder arm; the int8 arms wait for the port's int8 "
-                         "encoder and raise")
+                    help="encoder arm: int8 = dynamic activation scales, "
+                         "int8_static = calibrated static scales "
+                         "(FFRNet.calibrate_int8), int8_all = RecNet's conv "
+                         "chains int8 too (static scales); bf16 = no int8")
     ap.add_argument("--wire", default="float32", choices=["float32", "uint8"],
                     help="client submission format: uint8 = raw pixels "
                          "(normalized on the card)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.encoder != "bf16":
-        raise ValueError(f"--encoder {args.encoder}: the int8 encoder waits for "
-                         "ROADMAP Queue 1 item 7")
 
     from ffrnet_torch.api import FFRNet
     from ffrnet_torch.serving import EmbeddingService
 
     dtype = torch.bfloat16 if args.dtype == "bf16" else None
-    model = FFRNet.random(0, dtype=dtype, device=args.device, fold_bn=True)
+    q_mode = {"bf16": False, "int8": True, "int8_static": True,
+              "int8_all": "all"}[args.encoder]
+    model = FFRNet.random(0, device=args.device).prepare(fold_bn=True, dtype=dtype,
+                                                         quantize_int8=q_mode)
+    if args.encoder in ("int8_static", "int8_all"):
+        cal = np.random.default_rng(2).uniform(-1.0, 1.0, (16, 112, 112, 3)).astype(np.float32)
+        model = model.calibrate_int8([cal])
     buckets = [int(b) for b in args.buckets.split(",")] if args.buckets else None
     svc = EmbeddingService(model, max_batch=args.max_batch,
                            max_delay_s=args.max_delay_ms / 1e3, buckets=buckets)

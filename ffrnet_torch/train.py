@@ -8,7 +8,9 @@ The JAX package's flags (config.py) and cadence: the metrics of every
 iteration; a 'latest' checkpoint every max(save_freq//10, 1) iterations
 and a numbered one every save_freq; LFW eval at ocl 0, 1 and 2 every
 eval_freq; the LR schedule per iteration; --continue_train 1 --which_file
-<name> resumes at the stored epoch and iteration, inside the epoch. Runs on
+<name> resumes at the stored epoch and iteration, inside the epoch;
+--int8_encoder 1 runs the frozen encoder of the step (or of the feature-
+cache build) in int8 with calibrated scales, and the eval in float. Runs on
 the card unless --device cpu.
 
 The step's metrics are 0-d tensors on the card: they are queued, and
@@ -22,6 +24,7 @@ from __future__ import annotations
 import copy
 import os
 import sys
+import time
 import types
 from typing import Optional
 
@@ -103,6 +106,43 @@ def load_encoder(opts: Options, device) -> torch.nn.Module:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     return enc.to(device).eval()
+
+
+def prepare_int8_encoder(encoder: torch.nn.Module, dataset, compute_dtype: str,
+                         cal_images: int = 8) -> torch.nn.Module:
+    """The int8-static frozen encoder of --int8_encoder 1
+    (ffrnet_tpu/train.py:121-175): BN folded (exact: the frozen encoder
+    runs in eval mode), cast to the compute type, int8 sites, and static
+    scales calibrated on the first `cal_images` training images of both
+    streams (mask-free and occluded), drawn with np.random.default_rng(0)
+    so the loader's own streams are untouched. Gradients never reach the
+    encoder, so the backward pass is unchanged. One eager pass on the
+    encoder's device."""
+    from ffrnet_torch.models.optimize import fold_backbone_bn
+    from ffrnet_torch.models.quantize import calibrate_activation_scales, quantize_encoder
+
+    half = half_dtype(compute_dtype)
+    enc = fold_backbone_bn(encoder)
+    if half is not None:
+        enc = enc.to(half)
+    imgs = []
+    cal_rng = np.random.default_rng(0)
+    for i in range(len(dataset)):
+        item = dataset.get(i, cal_rng)
+        for k in ("img_non", "img_ocl"):
+            a = np.asarray(item[k])
+            if a.dtype == np.uint8:  # host_normalize=0 samples
+                a = a.astype(np.float32) / 127.5 - 1.0
+            imgs.append(a.astype(np.float32))
+        if len(imgs) >= cal_images:
+            break
+    w = enc.input_layer[0].weight
+    x = torch.from_numpy(np.stack(imgs[:cal_images])).to(w.device, w.dtype)
+    t0 = time.perf_counter()
+    enc = calibrate_activation_scales(quantize_encoder(enc), [x.permute(0, 3, 1, 2).contiguous()])
+    print(f"[int8_encoder] calibrated static scales on {len(x)} training images in "
+          f"{time.perf_counter() - t0:.1f}s", file=sys.stderr, flush=True)
+    return enc.eval()
 
 
 def make_train_dataset(opts: Options):
@@ -276,16 +316,31 @@ def _train(opts: Options, guard: PreemptionGuard) -> None:
             print("[warn] --cache_features with a non-CasiaPairs dataset: the cache "
                   "freezes any per-epoch augmentation beyond the paired flip (e.g. "
                   "SyntheticPairs noise is drawn once)", file=sys.stderr)
+        # --int8_encoder 1: the build's one encoder pass runs int8-static
+        # (made only when a build is needed); the fingerprint hashes the
+        # float encoder plus the variant tag, so int8-built and float-built
+        # caches never collide
+        factory = ((lambda: prepare_int8_encoder(encoder, flipfree, cfg.compute_dtype))
+                   if opts.int8_encoder else None)
         build_feature_cache(flipfree, encoder, cache_dir, batch_size=opts.batch_size,
-                            compute_dtype=cfg.compute_dtype, num_threads=opts.n_thread)
+                            compute_dtype=cfg.compute_dtype, num_threads=opts.n_thread,
+                            encoder_factory=factory,
+                            fingerprint_extra="int8-static-v1" if opts.int8_encoder else "")
         dataset = CachedFeatureDataset(cache_dir, flip_prob=flip_prob)
+        if opts.int8_encoder:
+            print("[info] feature cache built with the int8-static encoder (its quantization "
+                  "error is in the cached features of every epoch); LFW eval stays float",
+                  file=sys.stderr)
         pack = FEATURE_PACK if opts.pack_upload else None
 
         def step(batch):
             return train_step_from_features(state, to_nchw(batch), cfg=cfg)
     else:
         half = half_dtype(cfg.compute_dtype)
-        step_encoder = encoder if half is None else copy.deepcopy(encoder).to(half)
+        if opts.int8_encoder:  # the step's frozen forward runs int8; eval keeps `encoder`
+            step_encoder = prepare_int8_encoder(encoder, dataset, cfg.compute_dtype)
+        else:
+            step_encoder = encoder if half is None else copy.deepcopy(encoder).to(half)
         pack = {"imgs": ("img_non", "img_ocl")} if opts.pack_upload else None
 
         def step(batch):

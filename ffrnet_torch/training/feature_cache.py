@@ -105,10 +105,17 @@ def cache_fingerprint(dataset, encoder: torch.nn.Module, extra: str = "") -> str
 @torch.no_grad()
 def build_feature_cache(dataset, encoder: torch.nn.Module, cache_dir: str, *,
                         batch_size: int = 256, compute_dtype: str = "fp32",
-                        num_threads: int = 4) -> str:
+                        num_threads: int = 4, encoder_factory=None,
+                        fingerprint_extra: str = "") -> str:
     """Encode every sample of a flip-free paired dataset (flip_prob 0: the
     flipped variant is made on the encoder's device) into cache_dir, with
     the fp32 `encoder` run in the compute type. Returns cache_dir.
+
+    encoder_factory: a zero-argument callable giving the encoder the build
+    runs instead, already in the compute type (the driver's int8-static
+    encoder); it is called only when a build is needed, after the lock
+    exists. The fingerprint hashes the float `encoder` and
+    `fingerprint_extra`, which names such a variant.
 
     Idempotent: a complete cache with the same meta (size, compute type,
     fingerprint) is left as it is."""
@@ -120,7 +127,7 @@ def build_feature_cache(dataset, encoder: torch.nn.Module, cache_dir: str, *,
                          "the flip variants are made on the device")
     n = len(dataset)
     meta = {"n": n, "compute_dtype": compute_dtype, "version": 2,
-            "fingerprint": cache_fingerprint(dataset, encoder)}
+            "fingerprint": cache_fingerprint(dataset, encoder, fingerprint_extra)}
     meta_path = os.path.join(cache_dir, _META)
     if os.path.exists(meta_path):
         with open(meta_path) as f:
@@ -133,7 +140,10 @@ def build_feature_cache(dataset, encoder: torch.nn.Module, cache_dir: str, *,
     _touch_lock(cache_dir)
 
     half = half_dtype(compute_dtype)
-    enc = copy.deepcopy(encoder).to(half).eval() if half is not None else encoder
+    if encoder_factory is not None:
+        enc = encoder_factory()
+    else:
+        enc = copy.deepcopy(encoder).to(half).eval() if half is not None else encoder
     dev = encoder.input_layer[0].weight.device
 
     dt = _np_dtype(compute_dtype)

@@ -15,6 +15,8 @@ import torch
 from ffrnet_torch.ops.align import ARCFACE_REF_PTS, cv2_transform
 from ffrnet_torch.ops.kernels.channel_branch import (_collapse, channel_branch,
                                                      channel_branch_plain)
+from ffrnet_torch.ops.kernels.int8_conv import (int8_conv, int8_conv_plain, pack_weight,
+                                                to_nhwc)
 from ffrnet_torch.ops.kernels.se_gating import _se_plan, se_gating, se_gating_plain
 from ffrnet_torch.ops.kernels.self_similarity import (
     self_similarity_fused, self_similarity_fused_plain)
@@ -309,3 +311,90 @@ def test_cuda_service_matches_direct_embed(cuda):
     n = svc.stats.batches
     assert svc.stats.faces == 24 and svc.stats.errors == 0 and n >= 2
     assert (counts["se_gating"], counts["channel_branch"], counts["self_similarity"]) == (24 * n, n, 0)
+
+
+# (Cin, Cout, input H = W, window, stride, padding) of every int8 site shape
+# of IR-SE50 (112x112 input) and of RecNet (7x7 maps, reflect-padded to 9x9
+# outside the conv); Cin 0 is the encoder's output Linear (K = 25088)
+INT8_SITES = [(64, 64, 112, 3, 1, 1), (64, 64, 112, 3, 2, 1), (64, 64, 56, 3, 1, 1),
+              (64, 128, 56, 3, 1, 1), (128, 128, 56, 3, 2, 1), (64, 128, 56, 1, 2, 0),
+              (128, 128, 28, 3, 1, 1), (128, 256, 28, 3, 1, 1), (256, 256, 28, 3, 2, 1),
+              (128, 256, 28, 1, 2, 0), (256, 256, 14, 3, 1, 1), (256, 512, 14, 3, 1, 1),
+              (512, 512, 14, 3, 2, 1), (256, 512, 14, 1, 2, 0), (512, 512, 7, 3, 1, 1),
+              (0, 512, 1, 1, 1, 0),
+              (561, 256, 9, 3, 1, 0), (256, 256, 9, 3, 1, 0), (256, 128, 9, 3, 1, 0),
+              (128, 128, 9, 3, 1, 0), (128, 49, 9, 3, 1, 0), (49, 49, 9, 3, 1, 0),
+              (1024, 512, 9, 3, 1, 0), (512, 512, 9, 3, 1, 0), (1536, 512, 9, 3, 1, 0)]
+
+
+def int8_operands(site, n, g, device, fill=None):
+    """Random int8 operands of one site shape, packed as the kernel takes
+    them, with deq and a bias; `fill` sets every activation and weight to
+    that value (0: a zero map; 127: the accumulator's largest magnitude)."""
+    cin, cout, h, k, _, _ = site
+    shape = (n, 25088) if cin == 0 else (n, cin, h, h)
+    wshape = (cout, 25088) if cin == 0 else (cout, cin, k, k)
+    x = torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, wshape, generator=g, dtype=torch.int8)
+    if fill is not None:
+        x.fill_(fill)
+        w.fill_(fill)
+    deq = torch.rand(cout, generator=g) * 1e-4
+    bias = torch.randn(cout, generator=g)
+    return (to_nhwc(x.to(device)), pack_weight(w.to(device)), deq.to(device), bias.to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+def test_cuda_int8_conv_matches_plain(cuda, out):
+    """int8_conv vs its twin at every int8 site shape, N 1 and 3, with and
+    without bias: the same integer product and the same two fp32 roundings,
+    so equal to the bit; also a zero map, operands at 127 everywhere (the
+    largest accumulator, 127^2 K) and a misaligned input view."""
+    g = torch.Generator().manual_seed(11)
+    dt = TDT[out]
+    for site in INT8_SITES:
+        stride, pad = site[4], site[5]
+        for n in (1, 3):
+            xq, wp, deq, bias = int8_operands(site, n, g, cuda)
+            for b in (bias, None):
+                got = int8_conv(xq, wp, deq, b, stride=stride, padding=pad, out_dtype=dt)
+                want = int8_conv_plain(xq, wp, deq, b, stride=stride, padding=pad, out_dtype=dt)
+                assert got.shape == want.shape and got.dtype == dt
+                assert torch.equal(got, want), site
+    for site in (INT8_SITES[0], INT8_SITES[15], INT8_SITES[16], INT8_SITES[21]):
+        for fill in (0, 127):
+            xq, wp, deq, bias = int8_operands(site, 3, g, cuda, fill=fill)
+            got = int8_conv(xq, wp, deq, bias, stride=site[4], padding=site[5], out_dtype=dt)
+            assert torch.equal(got, int8_conv_plain(xq, wp, deq, bias, stride=site[4],
+                                                    padding=site[5], out_dtype=dt))
+    xq, wp, deq, bias = int8_operands(INT8_SITES[14], 2, g, cuda)
+    buf = torch.zeros(xq.numel() + 8, dtype=torch.int8, device=cuda)
+    view = buf[8:].view(xq.shape)  # 8 bytes off a 16-byte boundary
+    view.copy_(xq)
+    assert torch.equal(int8_conv(view, wp, deq, bias, stride=1, padding=1, out_dtype=dt),
+                       int8_conv_plain(xq, wp, deq, bias, stride=1, padding=1, out_dtype=dt))
+
+
+@pytest.mark.cuda
+def test_cuda_int8_model_matches_cpu(cuda):
+    """The same int8 model (fused, BN folded, 'all', fp32, calibrated) on
+    the card and on the CPU: int8 levels can flip where cuDNN's float
+    convolutions round otherwise than the CPU's, so rows are held by cosine;
+    launches exact (52 int8_conv per encoder forward, 15 per RecNet)."""
+    from ffrnet_torch.api import FFRNet
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    faces = np.random.default_rng(12).integers(0, 256, (4, 112, 112, 3), dtype=np.uint8)
+    base = FFRNet.random(seed=0, device=cuda).prepare(fold_bn=True, quantize_int8="all")
+    model = base.calibrate_int8([faces[:2]])
+    cpu = FFRNet(model.encoder, model.recnet, model.cfg, "cpu").prepare()
+    reset_launch_counts()
+    card = model.embed(faces)
+    torch.cuda.synchronize()
+    c = launch_counts()
+    assert (c["int8_conv"], c["se_gating"], c["channel_branch"]) == (52 + 15, 24, 1)
+    for a, b in zip(card, cpu.embed(faces)):
+        cos = torch.nn.functional.cosine_similarity(a.cpu(), b, dim=1)
+        assert (cos > 0.999).all(), cos
+

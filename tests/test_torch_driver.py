@@ -72,8 +72,7 @@ def test_flag_surface_matches_jax(argv, tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["--mesh_data", "2"], "item 6"), (["--mesh_model", "2"], "item 6"),
-    (["--ckpt_backend", "orbax"], "item 6"), (["--int8_encoder", "1"], "item 7"),
-    (["--ss_impl", "triton"], "ss_impl")])
+    (["--ckpt_backend", "orbax"], "item 6"), (["--ss_impl", "triton"], "ss_impl")])
 def test_unported_flags_raise(argv, item):
     with pytest.raises(ValueError, match=item):
         parse_args(argv, make_dirs=False)
@@ -336,3 +335,70 @@ def test_cached_packed_run_matches_the_raw_run(lfw20, stand_in, tmp_path):
     for k, v in want.items():
         if v.is_floating_point():
             torch.testing.assert_close(got[k], v, atol=1e-6, rtol=0, msg=k)
+
+
+class _Counted(torch.nn.Module):
+    """A StandIn that counts its forwards (the step's or the eval's encoder)."""
+
+    def __init__(self, inner):
+        super().__init__()
+        self.inner, self.calls = inner, 0
+        self.input_layer = inner.input_layer
+
+    def forward(self, x):
+        self.calls += 1
+        return self.inner(x)
+
+
+@pytest.mark.parametrize("cache", [0, 1])
+def test_int8_encoder_flag_reaches_the_step_and_the_cache(cache, lfw20, tmp_path, monkeypatch):
+    """--int8_encoder 1 (ffrnet_tpu/train.py:452-482, :552-558): parsed and
+    accepted; prepare_int8_encoder gets the float encoder, the training set
+    and the compute type; its encoder runs every step's frozen forward, or
+    the feature-cache build (made only when a build is needed), while LFW
+    eval runs the float encoder; an int8-built cache's fingerprint differs
+    from a float-built one's. prepare_int8_encoder itself runs on the real
+    IR-SE50 in tests/test_torch_int8_model.py."""
+    opts = parse_args(["--int8_encoder", "1", "--weight_root", str(tmp_path / "p")],
+                      make_dirs=False)
+    assert opts.int8_encoder == 1
+    made = []
+
+    def load(opts, device):
+        made.append(_Counted(StandIn().to(device).eval()))
+        return made[-1]
+
+    calls = []
+
+    def prepare(encoder, dataset, compute_dtype):
+        calls.append((encoder, len(dataset), compute_dtype))
+        made.append(_Counted(StandIn().eval()))
+        return made[-1]
+
+    monkeypatch.setattr(train_mod, "load_encoder", load)
+    monkeypatch.setattr(train_mod, "prepare_int8_encoder", prepare)
+    cache_dir = str(tmp_path / "cache")
+    kw = dict(save_freq=4, print_freq=1000, total_epochs=1,
+              cache_features=cache, feature_cache_dir=cache_dir if cache else "")
+    train_mod.train(run_opts(tmp_path / "int8", None if cache else lfw20, int8_encoder=1,
+                             eval_freq=4, **kw))
+    float_enc, int8_enc = made
+    assert calls == [(float_enc, 16, "fp32")]
+    assert int8_enc.calls == (8 if cache else 4)  # 4 batches: 2 flips each, or 4 steps
+    # eval at step 4 (the raw-image run): ocl 0/1/2, 20 pairs in batches of 4
+    assert float_enc.calls == (0 if cache else 3 * 5)
+    if cache:
+        from ffrnet_torch.training.feature_cache import build_feature_cache, cache_fingerprint
+
+        with open(os.path.join(cache_dir, "meta.json")) as f:
+            fp_int8 = json.load(f)["fingerprint"]
+        ds = train_mod.make_train_dataset(run_opts(tmp_path / "ds"))
+        assert fp_int8 == cache_fingerprint(ds, float_enc, "int8-static-v1")
+        assert fp_int8 != cache_fingerprint(ds, float_enc)  # the float build's
+
+        def unexpected():
+            raise AssertionError("a complete cache needs no encoder")
+
+        build_feature_cache(ds, float_enc, cache_dir, batch_size=4, encoder_factory=unexpected,
+                            fingerprint_extra="int8-static-v1")
+

@@ -61,7 +61,8 @@ def test_serve_http_example(tiny_service, monkeypatch, capsys):
 def test_examples_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
-    for module in ("ffrnet_torch.examples.embed_and_verify", "ffrnet_torch.examples.serve_http"):
+    for module in ("ffrnet_torch.examples.embed_and_verify", "ffrnet_torch.examples.serve_http",
+                   "ffrnet_torch.examples.int8_serving"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             _run(module, [])
 
@@ -83,8 +84,44 @@ def test_bench_serving_smoke(wire, capsys):
 
 
 @pytest.mark.parametrize("encoder", ["int8", "int8_static", "int8_all"])
-def test_bench_serving_int8_waits_for_item_7(encoder):
+def test_bench_serving_int8_arms(encoder, capsys, monkeypatch):
+    """The int8 arms (ffrnet_tpu/tools/bench_serving.py:61-68): BN folded,
+    the encoder int8 (int8_all: RecNet's conv chains too), static scales
+    calibrated for int8_static and int8_all; faces served without errors."""
+    from ffrnet_torch.api import FFRNet
+    from ffrnet_torch.ops.quant import has_int8_sites
     from ffrnet_torch.tools import bench_serving
 
-    with pytest.raises(ValueError, match="Queue 1 item 7"):
-        bench_serving.main(["--device", "cpu", "--encoder", encoder])
+    served = []
+    embed = FFRNet.embed
+
+    def spy(self, images):
+        served.append(self)
+        return embed(self, images)
+
+    monkeypatch.setattr(FFRNet, "embed", spy)
+    out = bench_serving.main(["--device", "cpu", "--clients", "2", "--group", "2",
+                              "--seconds", "0.3", "--max_batch", "4", "--buckets", "4",
+                              "--dtype", "fp32", "--encoder", encoder])
+    assert out["encoder"] == encoder and out["value"] > 0 and out["client_errors"] == 0
+    model = served[-1]
+    sites = [m for m in model.encoder.modules() if type(m).__name__ == "Int8Site"]
+    assert len(sites) == 52 and has_int8_sites(model.recnet) == (encoder == "int8_all")
+    assert all((s.x_scale is None) == (encoder == "int8") for s in sites)
+    assert model.encoder.body[0].res_layer[3].bias is not None  # folded
+
+
+def test_int8_serving_example(monkeypatch, capsys):
+    """Calibration, warmup and one request of 8 faces, through one bucket of
+    8 (the float64 twin makes a CPU int8 embed slow)."""
+    from ffrnet_torch.serving import service as svc_mod
+
+    orig = svc_mod.EmbeddingService.__init__
+
+    def one_bucket(self, model, max_batch=256, **kw):
+        orig(self, model, max_batch=8, buckets=(8,), **kw)
+
+    monkeypatch.setattr(svc_mod.EmbeddingService, "__init__", one_bucket)
+    _run("ffrnet_torch.examples.int8_serving", ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "int8 embeddings: raw (8, 512) rectified (8, 512)" in out

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from ffrnet_torch.ops.kernels import _build
 from ffrnet_torch.ops.kernels.channel_branch import _collapse, channel_branch
+from ffrnet_torch.ops.kernels.int8_conv import int8_conv
 from ffrnet_torch.ops.kernels.se_gating import se_gating
 from ffrnet_torch.ops.kernels.self_similarity import self_similarity_fused
 from ffrnet_torch.ops.kernels.warp import warp_affine_band, warp_affine_full
@@ -104,7 +105,7 @@ def test_wrappers_count_only_kernel_launches():
     """On the CPU every wrapper takes its plain twin, and a plain call is
     not a launch."""
     wrappers = (se_gating, self_similarity_fused, channel_branch, warp_affine_full,
-                warp_affine_band)
+                warp_affine_band, int8_conv)
     for w in wrappers:
         w.launches = 0
     x = torch.randn(1, 512, 7, 7)
@@ -115,14 +116,16 @@ def test_wrappers_count_only_kernel_launches():
     img, mat = torch.rand(1, 40, 40, 3), torch.tensor([[[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]])
     warp_affine_full(img, mat, out_hw=(8, 8))
     warp_affine_band(img, mat, out_hw=(8, 8))
-    assert tuple(w.launches for w in wrappers) == (0, 0, 0, 0, 0)
+    int8_conv(torch.zeros(1, 3, 3, 64, dtype=torch.int8),
+              torch.zeros(64, 3, 3, 64, dtype=torch.int8), torch.ones(64), padding=1)
+    assert tuple(w.launches for w in wrappers) == (0, 0, 0, 0, 0, 0)
 
 
 def test_build_key_tracks_sources():
     """Each kernel library is keyed on its sources and flags, under the
     package's ignored build directory."""
     paths = {n: _build.library_path(n) for n in _build.KERNELS}
-    assert len(set(paths.values())) == len(_build.KERNELS) == 4
+    assert len(set(paths.values())) == len(_build.KERNELS) == 5
     for n, p in paths.items():
         assert p.parent == _build.BUILD_DIR and p.name.startswith(f"lib{n}-")
         assert (_build.CSRC / f"{n}.cu").is_file()

@@ -215,7 +215,9 @@ def test_import_leaves_jax_out():
             "ffrnet_torch.eval.runner, ffrnet_torch.eval.search, ffrnet_torch.eval.visualize, "
             "ffrnet_torch.serving, ffrnet_torch.serving.service, ffrnet_torch.serving.http, "
             "ffrnet_torch.tools.bench_serving, ffrnet_torch.utils.image, "
-            "ffrnet_torch.examples.embed_and_verify, ffrnet_torch.examples.serve_http; "
+            "ffrnet_torch.examples.embed_and_verify, ffrnet_torch.examples.serve_http, "
+            "ffrnet_torch.ops.quant, ffrnet_torch.models.quantize, "
+            "ffrnet_torch.ops.kernels.int8_conv, ffrnet_torch.examples.int8_serving; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
             "'ffrnet_tpu')); print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
