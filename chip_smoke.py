@@ -337,13 +337,32 @@ def int8_case(site, n, g, dev, fill=None):
     return to_nhwc(x.to(dev)), pack_weight(w.to(dev)), deq.to(dev), bias.to(dev)
 
 
+def int8_plan_of(args, stride, pad, dt):
+    """The plan _launch gives an int8_conv call (xq, wp, ...) on this card."""
+    from ffrnet_torch.ops.kernels.int8_conv import _int8_plan, _sms
+
+    xq, wp = args[0], args[1]
+    n, h, w, cp = xq.shape
+    coutp, kh, kw, _ = wp.shape
+    return _int8_plan(n, h, w, cp, coutp, kh, kw, stride, pad, dt, _sms(xq.device))
+
+
+def plan_str(plan):
+    return (f"BN {plan.bn} BK {plan.bk} {plan.stages} stages, "
+            + (f"split-K x{plan.cluster}" if plan.cluster > 1 else "persistent")
+            + f", {plan.tiles} tiles on {plan.grid} CTAs")
+
+
 def check_int8_conv(dev, g):
     """int8_conv vs its twin (the integer product in float64, exact, then
-    the same two fp32 roundings) at every int8 site shape, N = 1, 3 and 64,
-    fp32 and bf16 outputs, with bias (and without at N = 3): equal to the
-    bit; then a zero map and operands at +-127 (accumulators of 127^2 K) at
-    the first encoder shape, the Linear, C = 561 and C = Cout = 49, and an
-    input view 8 bytes off a 16-byte boundary. Returns the largest error."""
+    the same two fp32 roundings) at every int8 site shape, N = 1, 2, 3 and
+    64, fp32 and bf16 outputs, with bias (and without at N = 3): equal to
+    the bit; N = 1 and 2 put every shape's K split over a cluster; N = 256 at
+    the Linear and the 14x14 256->256 site (whose 392 tiles are no multiple
+    of the persistent grid); then a zero map and operands at +-127
+    (accumulators of 127^2 K) at the first encoder shape, the Linear, C = 561
+    and C = Cout = 49, and an input view 8 bytes off a 16-byte boundary.
+    Logs the plan each shape took. Returns the largest error."""
     from ffrnet_torch.ops.kernels.int8_conv import int8_conv, int8_conv_plain
 
     def same(what, args, stride, pad, dt):
@@ -351,19 +370,41 @@ def check_int8_conv(dev, g):
         want = int8_conv_plain(*args, stride=stride, padding=pad, out_dtype=dt)
         if got.dtype != dt or got.shape != want.shape or not torch.equal(got, want):
             err = (got.float() - want.float()).abs().max().item()
+            plan = int8_plan_of(args, stride, pad, dt)
             raise AssertionError(f"int8_conv {what}: not bit-equal to the twin "
-                                 f"(max_abs_err {err:.3e})")
+                                 f"(max_abs_err {err:.3e}; plan {plan})")
         return (got.float() - want.float()).abs().max().item()
 
     t0, calls, worst = time.perf_counter(), 0, 0.0
-    for site in INT8_SITES:
-        for n in (1, 3, 64):
-            xq, wp, deq, bias = int8_case(site, n, g, dev)
-            for dt in (torch.float32, torch.bfloat16):
-                for b in ((bias, None) if n == 3 else (bias,)):
-                    worst = max(worst, same(f"{site} N={n} {dt} bias={b is not None}",
-                                            (xq, wp, deq, b), site[4], site[5], dt))
-                    calls += 1
+    split, ragged, whole = set(), [], {}
+    cases = [(site, n) for site in INT8_SITES for n in (1, 2, 3, 64)]
+    cases += [(INT8_SITES[15], 256), (INT8_SITES[10], 256)]
+    for site, n in cases:
+        xq, wp, deq, bias = int8_case(site, n, g, dev)
+        plans = []
+        for dt in (torch.float32, torch.bfloat16):
+            plan = int8_plan_of((xq, wp), site[4], site[5], dt)
+            plans.append(plan)
+            if n == 1:
+                whole[site] = plan
+            if plan.cluster > 1:
+                split.add(site)
+            elif plan.tiles > plan.grid and plan.tiles % plan.grid:
+                ragged.append((site, n))
+            for b in ((bias, None) if n == 3 else (bias,)):
+                worst = max(worst, same(f"{site} N={n} {dt} bias={b is not None}",
+                                        (xq, wp, deq, b), site[4], site[5], dt))
+                calls += 1
+        if n in (1, 256) or plans[0] != plans[1]:
+            log("kernels", f"int8_conv plan {site} N={n}: {plan_str(plans[0])}")
+    # K splits wherever it can at N = 1: in 2 or more stages, over tiles
+    # that leave room for a cluster of 2 per tile
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    unsplit = {s for s, p in whole.items() if p.kstages < 2 or 2 * p.tiles > sms}
+    if split != set(INT8_SITES) - unsplit or (INT8_SITES[10], 256) not in ragged:
+        raise AssertionError(f"int8_conv: split-K at {len(split)} of {len(INT8_SITES)} shapes "
+                             f"(not at {sorted(set(INT8_SITES) - split)}), ragged persistent "
+                             f"grids at {ragged}")
     edges = [INT8_SITES[0]] + [s for s in INT8_SITES if s[0] in (0, 561, 49)]
     for site in edges:
         for fill in (0, 127, -127):
@@ -380,10 +421,12 @@ def check_int8_conv(dev, g):
                             torch.float32))
     torch.cuda.synchronize()
     log("kernels", f"int8_conv: {len(INT8_SITES)} site shapes (16 of IR-SE50 with the Linear, 9 of "
-        f"RecNet with C 561/49 and Cout 49) x N 1/3/64 x fp32/bf16 out, with and without bias, "
-        f"a zero map, operands at +-127 (|acc| up to 127^2 K), a misaligned input: {calls + 1} "
-        f"calls bit-equal to the twin (max_abs_err {worst:.1e}) in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"RecNet with C 561/49 and Cout 49) x N 1/2/3/64 x fp32/bf16 out, with and without bias, "
+        f"N=256 at the Linear and at 14x14 256->256, split-K at {len(split)} shapes (not at "
+        f"{sorted(unsplit)}: one K stage, or more tiles at N=1 than clusters of 2 fit), "
+        f"{len(ragged)} persistent grids not dividing their tiles, a zero map, operands at +-127 "
+        f"(|acc| up to 127^2 K), a misaligned input: {calls + 1} calls bit-equal to the twin "
+        f"(max_abs_err {worst:.1e}) in {time.perf_counter() - t0:.1f} s")
     return worst
 
 
@@ -2066,20 +2109,41 @@ def int8_times(models, dev, card):
         p1, k1, k2, p2 = (cuda_ms(plain, iters=2, warmup=1), cuda_ms(kern, iters=10),
                           cuda_ms(kern, iters=10), cuda_ms(plain, iters=2, warmup=1))
         bound = int8_bound(calls)
+        per_call = sum(int8_bound([c])[0] for c in calls)
         out[dname] = (min(k1, k2), min(p1, p2), bound)
         log("times", f"int8_conv {dname} out, one encoder forward's {len(calls)} calls at N={n}: "
             f"kernel {k1:.4f}/{k2:.4f} ms, plain (float64 twin) {p1:.4f}/{p2:.4f} ms, bound "
-            f"{bound[0]:.4f} ms ({bound[1]}; {100 * bound[0] / min(k1, k2):.0f}%) | {card}")
-    # by shape, fp32 out: the kernel's share of each site's bound
+            f"{bound[0]:.4f} ms ({bound[1]}, the set as one; {100 * bound[0] / min(k1, k2):.0f}%), "
+            f"sum of the calls' own bounds {per_call:.4f} ms "
+            f"({100 * per_call / min(k1, k2):.0f}%) | {card}")
+    # by shape, fp32 out: the kernel's share of each site's bound, its plan,
+    # and torch._int_mm (cuBLASLt) on the same integers as a yardstick: the
+    # im2col matrix built outside the timed window, no epilogue
     shapes = {}
     for c in recorded["fp32"]:
         key = (tuple(c[0].shape), tuple(c[1].shape), c[4], c[5])
         shapes.setdefault(key, []).append(c)
     for (xs, ws, stride, pad), calls in shapes.items():
         t = cuda_ms(run(int8_conv, calls[:1]), iters=10)
+        dev_t = graph_ms(run(int8_conv, calls[:1]))  # without the wrapper's host time
         b = int8_bound(calls[:1])
+        xq, wp, deq = calls[0][:3]
+        plan = int8_plan_of((xq, wp), stride, pad, torch.float32)
+        try:
+            a = torch.nn.functional.unfold(xq.permute(0, 3, 1, 2).half(), ws[1:3], padding=pad,
+                                           stride=stride)  # (N, Cp KH KW, L), exact
+            a = a.transpose(1, 2).reshape(-1, a.shape[1]).to(torch.int8).contiguous()
+            wmat = wp[:deq.shape[0]].permute(0, 3, 1, 2).reshape(deq.shape[0], -1)
+            wt = wmat.contiguous().t()  # (K, Cout), column-major
+            mm = f"{cuda_ms(lambda: torch._int_mm(a, wt), iters=10):.4f} ms"
+            del a, wmat, wt
+        except RuntimeError as e:
+            mm = f"n/a ({str(e).splitlines()[0][:80]})"
         log("times", f"int8_conv x{xs} w{ws} stride {stride} pad {pad} (x{len(calls)} per "
-            f"forward): {t:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; {100 * b[0] / t:.0f}%)")
+            f"forward): {t:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; {100 * b[0] / t:.0f}%); device "
+            f"time (graph) {dev_t:.4f} ms ({100 * b[0] / dev_t:.0f}%); {plan_str(plan)}; "
+            f"torch._int_mm of the im2col product {mm}")
+        torch.cuda.empty_cache()
     # yardstick: cuDNN's bf16 convolutions of the 51 conv shapes, NCHW, and
     # a bf16 F.linear for the Linear (a float product, not the int8 one)
     g = gen(112)
@@ -2160,7 +2224,10 @@ def main():
     if counts["int8_conv"] == 0:
         raise AssertionError("int8_conv never launched on the int8 path")
     times["int8_conv"], bound["int8_conv"] = int8_time[:2], int8_time[2]
-    library["int8_conv"] = None  # no PyTorch call computes the int8 product
+    # torch._int_mm computes the integer product of an im2col matrix (phase
+    # 11 times it beside each shape), but not this function: no im2col, no
+    # dequantizing epilogue, int32 out
+    library["int8_conv"] = None
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep, "launches": counts[k],
          "max_abs_err": errs[k], "ms": times[k][0], "plain_ms": times[k][1],

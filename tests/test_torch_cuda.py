@@ -347,21 +347,23 @@ def int8_operands(site, n, g, device, fill=None):
 @pytest.mark.cuda
 @pytest.mark.parametrize("out", ["float32", "bfloat16"])
 def test_cuda_int8_conv_matches_plain(cuda, out):
-    """int8_conv vs its twin at every int8 site shape, N 1 and 3, with and
-    without bias: the same integer product and the same two fp32 roundings,
-    so equal to the bit; also a zero map, operands at 127 everywhere (the
-    largest accumulator, 127^2 K) and a misaligned input view."""
+    """int8_conv vs its twin at every int8 site shape, N 1, 2 and 3 (K split
+    over a cluster at N 1 and 2, persistent CTAs at larger N), with and
+    without bias, and the Linear and the 14x14 256->256 site at N 256: the
+    same integer product and the same two fp32 roundings, so equal to the
+    bit; also a zero map, operands at 127 everywhere (the largest
+    accumulator, 127^2 K) and a misaligned input view."""
     g = torch.Generator().manual_seed(11)
     dt = TDT[out]
-    for site in INT8_SITES:
+    cases = [(site, n) for site in INT8_SITES for n in (1, 2, 3)]
+    for site, n in cases + [(INT8_SITES[15], 256), (INT8_SITES[10], 256)]:
         stride, pad = site[4], site[5]
-        for n in (1, 3):
-            xq, wp, deq, bias = int8_operands(site, n, g, cuda)
-            for b in (bias, None):
-                got = int8_conv(xq, wp, deq, b, stride=stride, padding=pad, out_dtype=dt)
-                want = int8_conv_plain(xq, wp, deq, b, stride=stride, padding=pad, out_dtype=dt)
-                assert got.shape == want.shape and got.dtype == dt
-                assert torch.equal(got, want), site
+        xq, wp, deq, bias = int8_operands(site, n, g, cuda)
+        for b in (bias, None):
+            got = int8_conv(xq, wp, deq, b, stride=stride, padding=pad, out_dtype=dt)
+            want = int8_conv_plain(xq, wp, deq, b, stride=stride, padding=pad, out_dtype=dt)
+            assert got.shape == want.shape and got.dtype == dt
+            assert torch.equal(got, want), (site, n)
     for site in (INT8_SITES[0], INT8_SITES[15], INT8_SITES[16], INT8_SITES[21]):
         for fill in (0, 127):
             xq, wp, deq, bias = int8_operands(site, 3, g, cuda, fill=fill)
