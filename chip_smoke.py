@@ -1,4 +1,4 @@
-"""Drive the PyTorch/H100 port's inference, ingest, training and serving paths on one NVIDIA GPU.
+"""Drive the PyTorch/H100 port's inference, ingest, training, serving and export paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -80,6 +80,14 @@ exits non-zero without a result line:
               bf16 and fp32, N=1 latency, and int8_conv's time per encoder
               forward beside its bound, its twin and cuDNN's bf16 convolutions
               of the same shapes (a yardstick, not the same function)
+ 12. export   tools/export_model.export_embed with a symbolic batch, saved
+              and loaded with torch.export, for fused fp32 and bf16,
+              ss_kernel fp32 and the calibrated bf16 int8 "all" model: the
+              loaded graph's ffrnet.* operator nodes (24 se_gating, 1
+              channel_branch or self_similarity, 67 int8_conv), its
+              outputs at N=1, 3 and 256 against embed (fp32 1e-4, else
+              cosine >= 0.999), the launches of each call exactly, and its
+              N=256 faces/s beside embed's
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit as nvidia-smi gives them, and the result line
@@ -2192,6 +2200,143 @@ def phase_int8(dev, card):
     return total, times
 
 
+# ----------------------------------------------------------------- phase 12
+
+# each exported program at these batches against embed of the same model in
+# the same call; fp32: the JAX export test's bound (tests/test_export.py:
+# 36-39); bf16 and int8: phase 10's bf16 bound, cosine per row
+EXPORT_NS = (1, 3, 256)
+EXPORT_TOL = (1e-4, 1e-4)
+EXPORT_MIN_COS = SERVE_BF16_MIN_COS
+
+
+def export_models(models, dev):
+    """The four exported configurations -> {name: (model, the operator nodes
+    its graph must hold, which are also its launches per call)}: fused fp32 and bf16,
+    ss_kernel fp32, and the BN-folded bf16 int8 "all" model calibrated on
+    phase 11's 8 faces."""
+    from ffrnet_torch.api import FFRNet
+
+    cal = torch.randint(0, 256, (8, 112, 112, 3), generator=gen(110), dtype=torch.uint8).numpy()
+    int8_all = FFRNet.random(seed=0, device=dev).prepare(
+        fold_bn=True, dtype=torch.bfloat16, quantize_int8="all").calibrate_int8([cal])
+    fused = {"se_gating": 24, "channel_branch": 1}
+    return {"fused fp32": (models["fused"], fused),
+            "fused bf16": (models["fused"].prepare(dtype=torch.bfloat16), fused),
+            "ss_kernel fp32": (models["ss_kernel"], {"se_gating": 24, "self_similarity": 1}),
+            "int8 all bf16 static": (int8_all, dict(fused, int8_conv=INT8_ENCODER_SITES
+                                                    + INT8_RECNET_SITES))}
+
+
+def export_round_trip(name, model, want_ops, root):
+    """export_embed with a symbolic batch, torch.export.save to `root`,
+    torch.export.load; the operator nodes of the loaded graph checked. ->
+    the loaded program's module."""
+    from ffrnet_torch.tools.export_model import export_embed, input_shape
+
+    t0 = time.perf_counter()
+    program = export_embed(model)
+    t1 = time.perf_counter()
+    path = os.path.join(root, name.replace(" ", "_") + ".pt2")
+    torch.export.save(program, path)
+    t2 = time.perf_counter()
+    loaded = torch.export.load(path)
+    t3 = time.perf_counter()
+    nodes, calls, checks = {}, 0, 0
+    for node in loaded.graph.nodes:
+        target = str(node.target)
+        if node.op != "call_function":
+            continue
+        calls += 1
+        if target.startswith("ffrnet."):
+            op = target.split(".")[1]
+            nodes[op] = nodes.get(op, 0) + 1
+        checks += target == "aten._assert_tensor_metadata.default"
+    if nodes != want_ops or input_shape(loaded) != ["b", 112, 112, 3]:
+        raise AssertionError(f"export {name}: operator nodes {nodes}, expected {want_ops}; "
+                             f"input {input_shape(loaded)}")
+    # the checks run on the host at every call (torch.export records one per
+    # .to(dtype) of the traced code) and launch nothing
+    log("export", f"{name}: exported in {t1 - t0:.1f} s, saved ({os.path.getsize(path) / 1e6:.1f} "
+        f"MB) in {t2 - t1:.1f} s, loaded in {t3 - t2:.1f} s; input {input_shape(loaded)}; "
+        f"operator nodes {nodes} of {calls} call nodes, {checks} of them "
+        f"aten._assert_tensor_metadata")
+    return loaded.module()
+
+
+def export_check(name, model, run, want_ops, faces):
+    """The loaded program at each of EXPORT_NS against embed of the same
+    faces, and the launches of each of its calls. -> the launch counts of
+    those calls, summed."""
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    expected = {k: want_ops.get(k, 0) for k in KERNELS}
+    total = {k: 0 for k in KERNELS}
+    for n in EXPORT_NS:
+        x = model._unit(faces[:n])
+        want = model.embed(x)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with torch.inference_mode():
+            got = run(x.to(model.dtype))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if counts != expected:
+            raise AssertionError(f"export {name} N={n}: one call launched {counts}, expected "
+                                 f"{expected}")
+        for k in total:
+            total[k] += counts[k]
+        for t in got:
+            if tuple(t.shape) != (n, 512) or t.dtype != model.dtype or not torch.isfinite(t).all():
+                raise AssertionError(f"export {name} N={n}: output {tuple(t.shape)} {t.dtype}")
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        if model.dtype == torch.float32:
+            err = max(check_close(f"export {name} N={n}", a, b, *EXPORT_TOL)
+                      for a, b in zip(got, want))
+            what = f"max_abs_err {err:.3e} (tol atol={EXPORT_TOL[0]} rtol={EXPORT_TOL[1]})"
+        else:
+            cos = min(min_cos(a, b) for a, b in zip(got, want))
+            if not cos >= EXPORT_MIN_COS:
+                raise AssertionError(f"export {name} N={n}: min cosine {cos:.6f} below "
+                                     f"{EXPORT_MIN_COS}")
+            what = f"min cosine {cos:.6f} (bound {EXPORT_MIN_COS})"
+        log("export", f"{name} N={n}: loaded program vs embed {what}, bit-equal {equal}; one "
+            f"call launched {({k: v for k, v in counts.items() if v})}")
+    return total
+
+
+def phase_export(models, dev, card):
+    """Export, save, load and run each configuration of `export_models`;
+    the loaded program's N=256 faces/s beside embed's on the same device
+    faces (a record, not a claim). -> the launch counts of the checked
+    calls, summed."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    faces = torch.randint(0, 256, (max(EXPORT_NS), 112, 112, 3), generator=gen(120),
+                          dtype=torch.uint8).to(dev)
+    total = {k: 0 for k in KERNELS}
+    with tempfile.TemporaryDirectory(prefix="ffrnet_export_") as root:
+        for name, (model, want_ops) in export_models(models, dev).items():
+            run = export_round_trip(name, model, want_ops, root)
+            for k, v in export_check(name, model, run, want_ops, faces).items():
+                total[k] += v
+            x = model._unit(faces).to(model.dtype)
+
+            def program():
+                with torch.inference_mode():
+                    run(x)
+
+            t_p, t_e = host_ms(program, samples=10), host_ms(lambda: model.embed(x), samples=10)
+            log("times", f"export {name} N={len(x)} device faces in: loaded program median "
+                f"{np.median(t_p):.3f} ms, {len(x) / np.median(t_p) * 1e3:.1f} faces/s; embed "
+                f"median {np.median(t_e):.3f} ms, {len(x) / np.median(t_e) * 1e3:.1f} faces/s "
+                f"(10 samples each) | {card}")
+    torch.cuda.empty_cache()
+    log("export", f"all export checks passed in {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 # ---------------------------------------------------------------------- main
 
 
@@ -2220,6 +2365,8 @@ def main():
         counts[k] += v
     int8_counts, int8_time = phase_int8(dev, smi)
     for k, v in int8_counts.items():
+        counts[k] += v
+    for k, v in phase_export(models, dev, smi).items():
         counts[k] += v
     if counts["int8_conv"] == 0:
         raise AssertionError("int8_conv never launched on the int8 path")

@@ -77,6 +77,16 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def forward_nhwc(encoder, recnet, dtype, x_nhwc):
+    """The inference forward: (N, 112, 112, 3) [-1, 1] NHWC images -> (raw
+    embedding, rectified embedding, rectified map NHWC). `FFRNet._forward`
+    runs it under inference_mode; tools/export_model.py traces it."""
+    x = x_nhwc.to(dtype).permute(0, 3, 1, 2).contiguous()
+    featmap, raw = encoder(x)
+    rect, rect_map = recnet(featmap)
+    return raw, rect, rect_map.permute(0, 2, 3, 1)
+
+
 class FFRNet:
     """Frozen IR-SE50 encoder + RecNet, inference only (float, or int8
     after prepare(quantize_int8=...))."""
@@ -197,10 +207,7 @@ class FFRNet:
 
     @torch.inference_mode()
     def _forward(self, x_nhwc):
-        x = x_nhwc.to(self.dtype).permute(0, 3, 1, 2).contiguous()
-        featmap, raw = self.encoder(x)
-        rect, rect_map = self.recnet(featmap)
-        return raw, rect, rect_map.permute(0, 2, 3, 1)
+        return forward_nhwc(self.encoder, self.recnet, self.dtype, x_nhwc)
 
     def embed(self, images) -> Tuple[torch.Tensor, torch.Tensor]:
         """(N, 112, 112, 3) BGR -> (raw embedding (N, 512) L2-normed,

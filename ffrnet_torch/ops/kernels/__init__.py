@@ -2,11 +2,18 @@
 
 Each wrapper takes its plain version only for a tensor on the CPU; for a
 CUDA tensor it launches its kernel or raises. Each keeps a launch count
-(`wrapper.launches`) that only a kernel launch increments. se_gating,
-self_similarity and channel_branch are `torch.autograd.Function`s whose
-backward is the VJP of the plain version (`_autograd.py`); the backward
-launches no kernel. int8_conv serves inference only (the frozen encoder
-and RecNet's conv chains, ops/quant.py).
+(`wrapper.launches`) that only a kernel launch increments.
+
+The four inference kernels are PyTorch operators in the `ffrnet`
+namespace (`_ops.py`): se_gating, channel_branch, self_similarity and
+int8_conv, so that PyTorch's dispatcher picks kernel or twin at run time
+and a traced program (tools/export_model.py) holds them; importing this
+package registers them. se_gating, self_similarity and channel_branch are
+differentiable, their backward the VJP of the plain version
+(`_autograd.py`), which launches no kernel. int8_conv serves inference
+only (the frozen encoder and RecNet's conv chains, ops/quant.py). The two
+warps stay Python wrappers: export takes aligned faces, so no warp is on
+its path.
 """
 
 from ffrnet_torch.ops.kernels.channel_branch import channel_branch

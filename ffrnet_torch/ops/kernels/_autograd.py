@@ -1,6 +1,6 @@
-"""Gradients of the port's kernels: `torch.autograd.Function`s whose forward
-is the kernel (or, for a CPU tensor, its plain twin) and whose backward is
-the VJP of the plain twin, recomputed in PyTorch ops from the saved inputs.
+"""Gradients of the port's kernels: the backward that each differentiable
+operator registers (`_ops.define`) is the VJP of its plain twin,
+recomputed in PyTorch ops from the saved inputs.
 
 That is what the Pallas kernels' custom VJPs do (their backward is the VJP
 of the XLA reference, e.g. ffrnet_tpu/ops/pallas/self_similarity.py:96-100):
@@ -10,25 +10,6 @@ neither package has a backward kernel.
 from __future__ import annotations
 
 import torch
-
-
-class KernelFunction(torch.autograd.Function):
-    """apply(fwd, plain, *tensors): forward `fwd(*tensors)`; backward the
-    VJP of `plain` at the saved tensors. An output that nothing read gets a
-    grad of None and adds nothing; only the inputs that need a gradient
-    get one."""
-
-    @staticmethod
-    def forward(ctx, fwd, plain, *tensors):
-        ctx.set_materialize_grads(False)
-        ctx.plain = plain
-        ctx.save_for_backward(*tensors)
-        return fwd(*tensors)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        return (None, None) + plain_vjp(ctx.plain, ctx.saved_tensors, grads,
-                                        ctx.needs_input_grad[2:])
 
 
 def plain_vjp(plain, inputs, grads, needs):
@@ -46,3 +27,12 @@ def plain_vjp(plain, inputs, grads, needs):
     got = iter(torch.autograd.grad([o for o, _ in pairs], wanted, [g for _, g in pairs],
                                    allow_unused=True))
     return tuple(next(got) if need else None for need in needs)
+
+
+def save_inputs(ctx, inputs, output):
+    """The `setup_context` of every differentiable operator: keep its tensor
+    inputs (a list's in order) for `plain_vjp`; an output that nothing read
+    gets a grad of None, not zeros."""
+    ctx.set_materialize_grads(False)
+    ctx.save_for_backward(*(t for a in inputs
+                            for t in (a if isinstance(a, (list, tuple)) else (a,))))

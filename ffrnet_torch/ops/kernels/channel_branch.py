@@ -16,11 +16,13 @@ Bound at C=512, HW=49, N=256, fp32: 0.066 ms (the products as 3xTF32 at
 Output layout: (N, C, HW), which is NCHW. The JAX kernel returns the
 transpose, (N, HW, C).
 
-The wrapper is differentiable (`_autograd.KernelFunction`, the Pallas
-kernel's custom VJP, ffrnet_tpu/ops/pallas/channel_branch.py:150-168): its
-backward is the VJP of the plain twin at the saved flat and `_collapse`
-operands, and `_collapse` is PyTorch ops, so the gradient reaches the
-Conv4Channel weights too.
+The wrapper calls the operator `ffrnet::channel_branch` (`_ops.py`): the
+kernel for CUDA tensors, the plain twin for CPU ones, chosen by PyTorch's
+dispatcher. It is differentiable (the Pallas kernel's custom VJP,
+ffrnet_tpu/ops/pallas/channel_branch.py:150-168): its backward is the VJP
+of the plain twin at the saved flat and `_collapse` operands, and
+`_collapse` is PyTorch ops, so the gradient reaches the Conv4Channel
+weights too.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from __future__ import annotations
 import torch
 
 from ffrnet_torch.ops.kernels import _build
-from ffrnet_torch.ops.kernels._autograd import KernelFunction
+from ffrnet_torch.ops.kernels._autograd import plain_vjp
+from ffrnet_torch.ops.kernels._ops import define
 
 _EPS = 1e-12
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -116,20 +119,24 @@ def channel_branch(flat, weights):
     """Fused channel branch of a (N, C, HW) map: the plain version on the
     CPU, the kernel on a CUDA tensor. `weights` come from `_collapse`; the
     gradient (to flat and to each weight) is the plain version's."""
-    if flat.device.type == "cpu":
-        fwd = _plain
-    elif flat.device.type == "cuda":
-        fwd = _launch
-    else:
-        raise ValueError(f"channel_branch: unsupported device {flat.device}")
-    return KernelFunction.apply(fwd, _plain, flat, *weights)
+    return _OP(flat, list(weights))
 
 
 def _plain(flat, *weights):
     return channel_branch_plain(flat, weights)
 
 
-def _launch(flat, *weights):
+def _fake(flat, weights):
+    return flat.new_empty(flat.shape)
+
+
+def _backward(ctx, grad):
+    need_flat, need_weights = ctx.needs_input_grad
+    grads = plain_vjp(_plain, ctx.saved_tensors, (grad,), (need_flat, *need_weights))
+    return grads[0], list(grads[1:])
+
+
+def _launch(flat, weights):
     """The checks, then one launch, on CUDA tensors."""
     n, c, hw = flat.shape
     if flat.dtype not in _DTYPES:
@@ -139,6 +146,8 @@ def _launch(flat, *weights):
                          f"got C={c}, HW={hw}")
     shapes = [(32, hw), (32, c), (32,), (c,), (32, 32), (32,), (c,),
               (32, 32), (32,), (c,), (c, 32), (c,)]
+    if len(weights) != len(shapes):
+        raise ValueError(f"channel_branch: {len(shapes)} weights, got {len(weights)}")
     for wt, shape in zip(weights, shapes):
         if (tuple(wt.shape) != shape or wt.dtype != torch.float32
                 or wt.device != flat.device or not wt.is_contiguous()):
@@ -162,4 +171,6 @@ def _launch(flat, *weights):
     return out
 
 
+_OP = define("channel_branch(Tensor flat, Tensor[] weights) -> Tensor",
+             cpu=channel_branch_plain, cuda=_launch, fake=_fake, backward=_backward)
 channel_branch.launches = 0

@@ -22,6 +22,11 @@ tiles fill less than one wave, K split over a thread-block cluster;
 The plain twin computes the same integer product exactly (float64 on the
 tensor's device: |acc| <= 127^2 * 25088 < 2^53) and then the epilogue's two
 fp32 roundings, so kernel and twin agree to the bit.
+
+The wrapper calls the operator `ffrnet::int8_conv` (`_ops.py`): the kernel
+for CUDA tensors, the plain twin for CPU ones, chosen by PyTorch's
+dispatcher; each implementation checks its operands first (`_check`). It
+serves inference only and has no gradient.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from ffrnet_torch.ops.kernels import _build
+from ffrnet_torch.ops.kernels._ops import define
 
 # the packed operands' padding: channels to a multiple of 64 (a stage's 64
 # or 128 bytes, the tensor maps' 16-byte strides), output channels to the
@@ -227,13 +233,19 @@ def int8_conv(xq, wp, deq, bias=None, *, stride=1, padding=0, out_dtype=torch.fl
     """(N, H, W, Cp) int8 x (Coutp, KH, KW, Cp) int8 -> (N, Cout, Ho, Wo) in
     out_dtype, Cout = len(deq): the plain version on the CPU, the kernel on
     a CUDA tensor."""
+    return _OP(xq, wp, deq, bias, stride, padding, out_dtype)
+
+
+def _cpu(xq, wp, deq, bias, stride, padding, out_dtype):
     _check(xq, wp, deq, bias, stride, padding, out_dtype)
-    if xq.device.type == "cpu":
-        return int8_conv_plain(xq, wp, deq, bias, stride=stride, padding=padding,
-                               out_dtype=out_dtype)
-    if xq.device.type != "cuda":
-        raise ValueError(f"int8_conv: unsupported device {xq.device}")
-    return _launch(xq, wp, deq, bias, stride, padding, out_dtype)
+    return int8_conv_plain(xq, wp, deq, bias, stride=stride, padding=padding,
+                           out_dtype=out_dtype)
+
+
+def _fake(xq, wp, deq, bias, stride, padding, out_dtype):
+    _check(xq, wp, deq, bias, stride, padding, out_dtype)
+    ho, wo = _out_hw(xq.shape[1], xq.shape[2], wp.shape[1], wp.shape[2], stride, padding)
+    return xq.new_empty((xq.shape[0], deq.shape[0], ho, wo), dtype=out_dtype)
 
 
 def _aligned(t):
@@ -249,6 +261,7 @@ def _sms(device) -> int:
 
 
 def _launch(xq, wp, deq, bias, stride, padding, out_dtype):
+    _check(xq, wp, deq, bias, stride, padding, out_dtype)
     n, h, w, cp = xq.shape
     coutp, kh, kw, _ = wp.shape
     cout = deq.shape[0]
@@ -268,4 +281,6 @@ def _launch(xq, wp, deq, bias, stride, padding, out_dtype):
     return out
 
 
+_OP = define("int8_conv(Tensor xq, Tensor wp, Tensor deq, Tensor? bias, int stride, "
+             "int padding, ScalarType out_dtype) -> Tensor", cpu=_cpu, cuda=_launch, fake=_fake)
 int8_conv.launches = 0

@@ -6,9 +6,11 @@ in fp32) and its design: one thread-block-cluster launch per gate, a
 cluster of K CTAs holding each sample's map in shared memory, so that x is
 read once and written once. `_se_plan` picks K.
 
-The wrapper is differentiable (`_autograd.KernelFunction`, the Pallas
-kernel's custom VJP, ffrnet_tpu/ops/pallas/se_gating.py:71-86): its
-backward is the VJP of the plain twin at the saved x, w1 and w2.
+The wrapper calls the operator `ffrnet::se_gating` (`_ops.py`): the
+kernel for CUDA tensors, the plain twin for CPU ones, chosen by PyTorch's
+dispatcher. It is differentiable (the Pallas kernel's custom VJP,
+ffrnet_tpu/ops/pallas/se_gating.py:71-86): its backward is the VJP of the
+plain twin at the saved x, w1 and w2.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import ctypes
 import torch
 
 from ffrnet_torch.ops.kernels import _build
-from ffrnet_torch.ops.kernels._autograd import KernelFunction
+from ffrnet_torch.ops.kernels._autograd import plain_vjp
+from ffrnet_torch.ops.kernels._ops import define
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -111,13 +114,7 @@ def _launch(x, w1, w2, plan):
 def se_gating(x, w1, w2):
     """SE gate of an NCHW map: the plain version on the CPU, the kernel on
     a CUDA tensor; the gradient is the plain version's."""
-    if x.device.type == "cpu":
-        fwd = se_gating_plain
-    elif x.device.type == "cuda":
-        fwd = _checked_launch
-    else:
-        raise ValueError(f"se_gating: unsupported device {x.device}")
-    return KernelFunction.apply(fwd, se_gating_plain, x, w1, w2)
+    return _OP(x, w1, w2)
 
 
 def _checked_launch(x, w1, w2):
@@ -137,4 +134,18 @@ def _checked_launch(x, w1, w2):
     return _launch(x, w1.contiguous(), w2.contiguous(), plan)
 
 
+def _cpu(x, w1, w2):
+    return se_gating_plain(x.contiguous(), w1, w2)
+
+
+def _fake(x, w1, w2):
+    return x.new_empty(x.shape)
+
+
+def _backward(ctx, grad):
+    return plain_vjp(se_gating_plain, ctx.saved_tensors, (grad,), ctx.needs_input_grad)
+
+
+_OP = define("se_gating(Tensor x, Tensor w1, Tensor w2) -> Tensor", cpu=_cpu,
+             cuda=_checked_launch, fake=_fake, backward=_backward)
 se_gating.launches = 0

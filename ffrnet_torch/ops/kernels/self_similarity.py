@@ -12,10 +12,12 @@ for ss_space, and one per upper-triangle 128x128 tile pair of
 ss_channel, each stored as computed and transposed, so the output is
 exactly symmetric (see the source note).
 
-The wrapper is differentiable (`_SelfSimilarity`, the Pallas kernel's
-custom VJP, ffrnet_tpu/ops/pallas/self_similarity.py:86-103): its backward
-is the VJP of the plain twin at the saved input, of one Gram's half where
-only one was read. The kernel computes both Grams even where only one is
+The wrapper calls the operator `ffrnet::self_similarity` (`_ops.py`): the
+kernel for CUDA tensors, the plain twin for CPU ones, chosen by PyTorch's
+dispatcher. It is differentiable (the Pallas kernel's custom VJP,
+ffrnet_tpu/ops/pallas/self_similarity.py:86-103): its backward is the VJP
+of the plain twin at the saved input, of one Gram's half where only one
+was read. The kernel computes both Grams even where only one is
 read, as the Pallas kernel does.
 """
 
@@ -27,6 +29,7 @@ import torch
 
 from ffrnet_torch.ops.kernels import _build
 from ffrnet_torch.ops.kernels._autograd import plain_vjp
+from ffrnet_torch.ops.kernels._ops import define
 
 _EPS = 1e-12
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -116,37 +119,26 @@ def _ss_channel_plain(x):
 def self_similarity_fused(x):
     """Both self-similarity Grams of an NCHW map: the plain version on the
     CPU, the kernel on a CUDA tensor; the gradient is the plain version's."""
-    if x.device.type == "cpu":
-        fwd = self_similarity_fused_plain
-    elif x.device.type == "cuda":
-        fwd = _launch
-    else:
-        raise ValueError(f"self_similarity: unsupported device {x.device}")
-    return _SelfSimilarity.apply(x, fwd)
+    return _OP(x)
 
 
-class _SelfSimilarity(torch.autograd.Function):
-    """forward: `fwd(x)`, the kernel or the plain version; backward: the VJP
-    of the plain version at the saved x. Where one Gram was not read (its
-    grad is None: the loss reads only ss_space of the rectified spatial
-    maps and only ss_channel of the channel maps), only the other Gram is
-    recomputed."""
+def _fake(x):
+    n, c, h, w = x.shape
+    return x.new_empty((n, h * w, h * w)), x.new_empty((n, c, c))
 
-    @staticmethod
-    def forward(ctx, x, fwd):
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(x)
-        return fwd(x)
 
-    @staticmethod
-    def backward(ctx, g_space, g_channel):
-        read = (g_space is not None, g_channel is not None)
-        if not any(read) or not ctx.needs_input_grad[0]:
-            return None, None
-        plain = {(True, True): self_similarity_fused_plain, (True, False): _ss_space_plain,
-                 (False, True): _ss_channel_plain}[read]
-        grads = tuple(g for g in (g_space, g_channel) if g is not None)
-        return plain_vjp(plain, ctx.saved_tensors, grads, (True,))[0], None
+def _backward(ctx, g_space, g_channel):
+    """The VJP of the plain version at the saved x. Where one Gram was not
+    read (its grad is None: the loss reads only ss_space of the rectified
+    spatial maps and only ss_channel of the channel maps), only the other
+    Gram is recomputed."""
+    read = (g_space is not None, g_channel is not None)
+    if not any(read) or not ctx.needs_input_grad[0]:
+        return None
+    plain = {(True, True): self_similarity_fused_plain, (True, False): _ss_space_plain,
+             (False, True): _ss_channel_plain}[read]
+    grads = tuple(g for g in (g_space, g_channel) if g is not None)
+    return plain_vjp(plain, ctx.saved_tensors, grads, (True,))[0]
 
 
 def _launch(x):
@@ -169,4 +161,6 @@ def _launch(x):
     return ss_space, ss_channel
 
 
+_OP = define("self_similarity(Tensor x) -> (Tensor, Tensor)",
+             cpu=self_similarity_fused_plain, cuda=_launch, fake=_fake, backward=_backward)
 self_similarity_fused.launches = 0

@@ -400,3 +400,31 @@ def test_cuda_int8_model_matches_cpu(cuda):
         cos = torch.nn.functional.cosine_similarity(a.cpu(), b, dim=1)
         assert (cos > 0.999).all(), cos
 
+
+
+@pytest.mark.cuda
+def test_cuda_exported_program_launches_the_kernels(cuda, tmp_path):
+    """export_embed of the fused fp32 model on the card, saved and loaded:
+    at N=1 and 5 the loaded program launches 24 se_gating and 1
+    channel_branch per call and matches embed (the JAX export test's
+    bound, 1e-4 abs + rel)."""
+    from ffrnet_torch.api import FFRNet
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ffrnet_torch.tools.export_model import export_embed
+
+    model = FFRNet.random(seed=0, device=cuda)
+    path = tmp_path / "ffrnet.pt2"
+    torch.export.save(export_embed(model), str(path))
+    run = torch.export.load(str(path)).module()
+    faces = np.random.default_rng(13).uniform(-1, 1, (5, 112, 112, 3)).astype(np.float32)
+    for n in (1, 5):
+        x = torch.from_numpy(faces[:n]).to(cuda)
+        want = model.embed(x)
+        reset_launch_counts()
+        with torch.inference_mode():
+            got = run(x)
+        torch.cuda.synchronize()
+        c = launch_counts()
+        assert (c["se_gating"], c["channel_branch"], c["self_similarity"]) == (24, 1, 0)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
