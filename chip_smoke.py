@@ -1,4 +1,4 @@
-"""Drive the PyTorch/H100 port's inference, ingest, training, serving and export paths on one NVIDIA GPU.
+"""Drive the PyTorch/H100 port's inference, ingest, training, serving, export and data-parallel paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -88,6 +88,22 @@ exits non-zero without a result line:
               outputs at N=1, 3 and 256 against embed (fp32 1e-4, else
               cosine >= 0.999), the launches of each call exactly, and its
               N=256 faces/s beside embed's
+ 13. data_parallel
+              two ranks spawned on cuda:0 under a gloo group they make
+              (NCCL puts no two ranks on one card) run make_distributed_step
+              (fused) and make_distributed_feature_step (ss_kernel) for 2
+              SGD updates on their halves of a global batch of 64 at full
+              width, against one process on the whole batches (parameters
+              1e-5, losses 1e-4 rel, rank checksums equal, launches per
+              rank per step exact), then evaluate_pairs_multiprocess over
+              a 600-pair tree (fold results bit-equal to evaluate_pairs);
+              python -m ffrnet_torch.train's main under
+              FFRNET_DISTRIBUTED=1 RANK=0 WORLD_SIZE=1 (NCCL) against the
+              same run without it, and --mesh_data 2 refused; FFRNet.shard()
+              bit-equal to embed at N=1, 11, 256, shard over cuda:0 twice
+              (the pad, split and gather) within 1e-4, and an
+              EmbeddingService over it; each rank's step ms beside the one
+              process's
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit as nvidia-smi gives them, and the result line
@@ -96,6 +112,7 @@ power limit as nvidia-smi gives them, and the result line
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -2337,6 +2354,398 @@ def phase_export(models, dev, card):
     return total
 
 
+# ----------------------------------------------------------------- phase 13
+
+DP_WORLD, DP_BATCH, DP_STEPS, DP_EVAL_BATCH = 2, 64, 2, 100
+# SGD, momentum 0.9, lr 1e-3: the update is linear in the gradient, so
+# two summation orders stay within the train parity bounds (Adam's
+# m/sqrt(v) would move a weight whose gradient is rounding noise by up to
+# 2 lr either way)
+DP_OPT = dict(optimizer="sgd", lr=1e-3, momentum=0.9)
+DP_KINDS = (("fused", "train_step", {"se_gating": 24}),
+            ("ss_kernel", "train_step_from_features", {"self_similarity": 7}))
+SHARD_NS = (1, 11, 256)
+
+
+def dp_inputs(dev):
+    """Two global batches of 64 uint8 faces (seed 130) and their frozen
+    features (fp32, NCHW; the encoder of seed 0 on the card)."""
+    from ffrnet_torch.models.irse import build_backbone
+    from ffrnet_torch.training.trainer import encode_frozen
+
+    enc = build_backbone(generator=gen(0)).to(dev).eval()
+    batches = [image_batch(DP_BATCH, 130 + i) for i in range(DP_STEPS)]
+    feats = [{k: v.cpu() for k, v in encode_frozen(enc, b).items()} for b in batches]
+    return enc, batches, feats
+
+
+def dp_state_of(state):
+    return {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+
+
+def dp_checksum(state):
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in state.model.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_run(kind, step, state, batches, rank, world, group):
+    """DP_STEPS updates of one rank on its shard -> per step (host ms,
+    launches, metrics averaged over the group, checksum), the final state."""
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ffrnet_torch.parallel.collectives import average_tensor
+
+    out = []
+    for b in batches:
+        n = len(b["label"]) // world
+        local = {k: v[rank * n:(rank + 1) * n] for k, v in b.items()}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t = time.perf_counter()
+        state, m = step(state, local)
+        torch.cuda.synchronize()
+        ms, counts = (time.perf_counter() - t) * 1e3, launch_counts()
+        metrics = {k: float(v) if k == "LR" or group is None
+                   else float(average_tensor(v.float(), group)) for k, v in m.items()}
+        out.append((ms, counts, metrics, dp_checksum(state)))
+    return out, dp_state_of(state)
+
+
+def dp_rank(rank, world, port, path):
+    """One rank of phase 13 on cuda:0 under a gloo group: the distributed
+    train_step (fused) and train_step_from_features (ss_kernel), then
+    evaluate_pairs_multiprocess over its slice of the pairs. Writes
+    path.<rank>. A rank that finds no card raises."""
+    import torch.distributed as dist
+
+    from ffrnet_torch import parallel
+    from ffrnet_torch.data.datasets import LfwPairs
+    from ffrnet_torch.data.pipeline import BatchLoader, SliceDataset
+    from ffrnet_torch.eval.runner import (evaluate_pairs_multiprocess, make_pair_score_fn,
+                                          process_pair_slice)
+    from ffrnet_torch.models.recnet import RecNetConfig, build_recnet
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ffrnet_torch.training.trainer import (create_train_state, make_distributed_feature_step,
+                                               make_distributed_step)
+
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"phase 13 rank {rank}: no card")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inp = torch.load(path, weights_only=False)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = parallel.make_mesh()
+        group = parallel.data_group(mesh)
+        from ffrnet_torch.models.irse import build_backbone
+
+        enc = build_backbone(generator=gen(0)).to(dev).eval()
+        res = {}
+        for name, what, _ in DP_KINDS:
+            cfg = train_cfg(name, **DP_OPT)
+            state = create_train_state(cfg, seed=1, device=dev)
+            if what == "train_step":
+                bound, (enc, state) = make_distributed_step(mesh, cfg, enc, state)
+                step = functools.partial(bound, enc)
+                batches = inp["batches"]
+            else:
+                step, state = make_distributed_feature_step(mesh, cfg, state)
+                batches = inp["feats"]
+            res[name] = dp_run(name, step, state, batches, rank, world, group)
+        rec = build_recnet(RecNetConfig(), generator=gen(1)).to(dev).eval()
+        ds = LfwPairs(inp["tree"], os.path.join(inp["tree"], "pairs.txt"), test_ocl_num=1,
+                      flip_prob=0.0)
+        local = SliceDataset(ds, process_pair_slice(len(ds), rank, world))
+        loader = BatchLoader(local, DP_EVAL_BATCH, shuffle=False, drop_last=False, num_threads=4,
+                             device=dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        folds = evaluate_pairs_multiprocess(make_pair_score_fn(enc, rec), loader.epoch(0),
+                                            n_pairs=len(ds), return_scores=True)
+        torch.cuda.synchronize()
+        res["eval"] = (folds, launch_counts(), -(-len(local) // DP_EVAL_BATCH))
+        torch.save(res, f"{path}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_reference(enc, batches, feats, dev):
+    """The single-process steps on the same global batches."""
+    from ffrnet_torch.training.trainer import (create_train_state, train_step,
+                                               train_step_from_features)
+
+    out = {}
+    for name, what, _ in DP_KINDS:
+        cfg = train_cfg(name, **DP_OPT)
+        state = create_train_state(cfg, seed=1, device=dev)
+        if what == "train_step":
+            step = functools.partial(train_step, enc, cfg=cfg)
+        else:
+            step = functools.partial(train_step_from_features, cfg=cfg)
+        out[name] = dp_run(name, step, state, batches if what == "train_step" else feats, 0, 1,
+                           None)
+    return out
+
+
+def dp_steps_and_eval(tree, dev, card):
+    """(a) and (b): two ranks against one process. -> the ranks' launches."""
+    import torch.multiprocessing as mp
+
+    from ffrnet_torch.data.datasets import LfwPairs
+    from ffrnet_torch.data.pipeline import BatchLoader
+    from ffrnet_torch.eval.runner import evaluate_pairs, make_pair_score_fn
+    from ffrnet_torch.models.recnet import RecNetConfig, build_recnet
+
+    enc, batches, feats = dp_inputs(dev)
+    path = os.path.join(tree, "dp_inputs.pt")
+    torch.save({"batches": [{k: v.cpu() for k, v in b.items()} for b in batches],
+                "feats": feats, "tree": tree}, path)
+    t0 = time.perf_counter()
+    mp.start_processes(dp_rank, args=(DP_WORLD, dp_free_port(), path), nprocs=DP_WORLD,
+                       join=True, start_method="spawn")
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(f"{path}.{r}", weights_only=False) for r in range(DP_WORLD)]
+    single = dp_reference(enc, batches, [{k: v.to(dev) for k, v in f.items()} for f in feats],
+                          dev)
+    total = {k: 0 for k in KERNELS}
+    for name, what, want in DP_KINDS:
+        expected = {k: want.get(k, 0) for k in KERNELS}
+        (steps0, sd0), (steps1, sd1) = (r[name] for r in ranks)
+        ref_steps, ref_sd = single[name]
+        for r, steps in enumerate((steps0, steps1)):
+            for i, (_, counts, _, _) in enumerate(steps):
+                if counts != expected:
+                    raise AssertionError(f"data parallel {name} rank {r} step {i}: launches "
+                                         f"{counts}, expected {expected}")
+                for k in total:
+                    total[k] += counts[k]
+        sums = [[s[3] for s in steps] for steps in (steps0, steps1)]
+        if sums[0] != sums[1] or any(not torch.equal(sd0[k], sd1[k]) for k in sd0):
+            raise AssertionError(f"data parallel {name}: the ranks' states differ ({sums})")
+        for (_, _, m, _), (_, _, m_ref, _) in zip(steps0, ref_steps):
+            for k in m_ref:
+                if abs(m[k] - m_ref[k]) > TRAIN_LOSS_RTOL * abs(m_ref[k]) + 1e-6:
+                    raise AssertionError(f"data parallel {name}: {k} {m[k]} vs one process "
+                                         f"{m_ref[k]}")
+        params = [k for k in ref_sd if "running" not in k and ref_sd[k].is_floating_point()]
+        err = max(check_close(f"data parallel {name} {k} vs one process", sd0[k], ref_sd[k],
+                              TRAIN_PARAM_ATOL, 0.0) for k in params)
+        stats = max((sd0[k] - ref_sd[k]).abs().max().item() for k in ref_sd if "running" in k)
+        log("data_parallel", f"{name} {what}: {DP_WORLD} ranks x {DP_BATCH // DP_WORLD} faces "
+            f"(gloo on cuda:0) vs one process x {DP_BATCH}, {DP_STEPS} SGD updates: parameters "
+            f"max_abs_err {err:.3e} (tol {TRAIN_PARAM_ATOL}), running stats {stats:.3e} "
+            f"(reported), losses within {TRAIN_LOSS_RTOL} rel (TotalLoss "
+            f"{steps0[0][2]['TotalLoss']:.4f}, {steps0[-1][2]['TotalLoss']:.4f}); rank checksums "
+            f"equal at every step; launches per rank per step "
+            f"{ {k: v for k, v in expected.items() if v} }")
+        log("times", f"data parallel {name} {what}: 2-rank step ms (rank 0: "
+            f"{', '.join(f'{s[0]:.1f}' for s in steps0)}; rank 1: "
+            f"{', '.join(f'{s[0]:.1f}' for s in steps1)}; both ranks on one card) beside the "
+            f"one-process step ms at N={DP_BATCH} ({', '.join(f'{s[0]:.1f}' for s in ref_steps)}; "
+            f"the first step of each includes its warm-up) | {card}")
+
+    rec = build_recnet(RecNetConfig(), generator=gen(1)).to(dev).eval()
+    ds = LfwPairs(tree, os.path.join(tree, "pairs.txt"), test_ocl_num=1, flip_prob=0.0)
+    loader = BatchLoader(ds, DP_EVAL_BATCH, shuffle=False, drop_last=False, num_threads=8,
+                         device=dev)
+    want = evaluate_pairs(make_pair_score_fn(enc, rec), loader.epoch(0), return_scores=True)
+    for r, res in enumerate(ranks):
+        folds, counts, n_batches = res["eval"]
+        for got, ref in zip(folds[:2], want[:2]):
+            for a, b in zip(got, ref):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"data parallel eval rank {r}: fold results {got} vs "
+                                         f"one process {ref}")
+        expected = {k: DRIVER_COUNTS["fused", "eval"].get(k, 0) * n_batches for k in KERNELS}
+        if counts != expected:
+            raise AssertionError(f"data parallel eval rank {r}: launches {counts}, expected "
+                                 f"{expected}")
+        for k in total:
+            total[k] += counts[k]
+    same = all(np.array_equal(a, b) for a, b in zip(ranks[0]["eval"][0][2:], want[2:]))
+    log("data_parallel", f"evaluate_pairs_multiprocess over {len(ds)} pairs (ocl 1, batches of "
+        f"{DP_EVAL_BATCH}, {DP_WORLD} ranks of {len(ds) // DP_WORLD}): fold results bit-equal "
+        f"to evaluate_pairs on every rank (mean accuracy rectified "
+        f"{float(want[0].mean_accuracy):.4f}, raw {float(want[1].mean_accuracy):.4f}); gathered "
+        f"scores bit-equal to the one-process scores: {same}; ranks spawned and joined in "
+        f"{spawn_s:.1f} s")
+    return total
+
+
+def dp_driver(tree, root, card):
+    """(c) python -m ffrnet_torch.train's main under FFRNET_DISTRIBUTED=1,
+    RANK=0, WORLD_SIZE=1 (NCCL) against the same run without it."""
+    from ffrnet_torch import parallel
+    from ffrnet_torch.checkpoint.store import load_checkpoint
+    from ffrnet_torch.config import parse_args
+    import ffrnet_torch.train as T
+
+    extra = ("--total_epochs", "1", "--optimizer", "sgd", "--lr", "1e-3", "--momentum", "0.9")
+    env = {"FFRNET_DISTRIBUTED": "1", "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1"}
+    joined = []
+    real_init = parallel.maybe_init_distributed
+
+    def init(device):
+        import torch.distributed as dist
+
+        dev = real_init(device)
+        if dev is not None:
+            joined.append((dev, dist.get_backend(), dist.get_world_size(),
+                           parallel.host_group() is not None))
+        return dev
+
+    probe = DriverProbe()
+    parallel.maybe_init_distributed = init
+    total = {k: 0 for k in KERNELS}
+    try:
+        ckpts = {}
+        for mode in ("one process", "distributed"):
+            probe.reset()
+            argv = driver_argv(tree, os.path.join(root, mode.replace(" ", "_")), *extra)
+            if mode == "distributed":
+                os.environ.update(env, MASTER_PORT=str(dp_free_port()))
+            try:
+                T.main(argv)
+            finally:
+                for k in env:
+                    os.environ.pop(k, None)
+            if joined != ([(torch.device("cuda", 0), "nccl", 1, True)] if mode == "distributed"
+                          else []):
+                raise AssertionError(f"driver {mode}: process groups joined {joined}")
+            check_driver_counts(f"{mode} fp32 fused train_step", probe.steps,
+                                DRIVER_COUNTS["fused", "train_step"])
+            check_driver_counts(f"{mode} fp32 fused eval batch", probe.evals,
+                                DRIVER_COUNTS["fused", "eval"])
+            if len(probe.steps) != 4:
+                raise AssertionError(f"driver {mode}: {len(probe.steps)} steps, expected 4")
+            if mode == "distributed":
+                for _, c in probe.steps + probe.evals:
+                    for k in total:
+                        total[k] += c[k]
+            opts = parse_args(argv, make_dirs=False)
+            ckpts[mode] = (sorted(n for n in os.listdir(opts.ckpt_dir) if n.endswith(".pth.gzip")),
+                           load_checkpoint(opts.ckpt_dir, "latest"))
+        (names_1, (sd_1, _, meta_1)), (names_d, (sd_d, _, meta_d)) = ckpts.values()
+        if names_d != names_1 or meta_d != meta_1:
+            raise AssertionError(f"driver distributed: checkpoints {names_d} {meta_d} vs "
+                                 f"{names_1} {meta_1}")
+        # the parameters within 1e-5; the running stats reported: cuDNN's
+        # backward is not deterministic, and ChannelFlipMerge.0's BN input
+        # (a large offset common to its channels) carries that into its
+        # running mean at a few 1e-5 after 4 updates, between two runs of
+        # the same code
+        err = max(check_close(f"driver distributed {k} vs one process", sd_d[k], sd_1[k],
+                              TRAIN_PARAM_ATOL, 0.0)
+                  for k in sd_1 if sd_1[k].is_floating_point() and "running" not in k)
+        stats = max((sd_d[k] - sd_1[k]).abs().max().item() for k in sd_1 if "running" in k)
+        os.environ.update(env, MASTER_PORT=str(dp_free_port()))
+        try:
+            T.main(driver_argv(tree, os.path.join(root, "mesh2"), *extra, "--mesh_data", "2"))
+            raise AssertionError("driver --mesh_data 2 at world size 1 did not raise")
+        except ValueError as e:
+            if "mesh (2 data x 1 model) needs 2 devices but only 1" not in str(e):
+                raise
+            refused = str(e)
+        finally:
+            for k in env:
+                os.environ.pop(k, None)
+    finally:
+        parallel.maybe_init_distributed = real_init
+        probe.close()
+    log("data_parallel", f"python -m ffrnet_torch.train under FFRNET_DISTRIBUTED=1 RANK=0 "
+        f"WORLD_SIZE=1: joined {joined[0][1]} on {joined[0][0]} with a gloo host group; 4 steps "
+        f"and an eval, launches as phase 9's; checkpoints {names_d} (one writer), latest "
+        f"parameters within {err:.3e} of the one-process run (tol {TRAIN_PARAM_ATOL}), running "
+        f"stats {stats:.3e} (reported); --mesh_data 2 "
+        f"raised: {refused}")
+    return total
+
+
+def dp_shard(models, card):
+    """(d) FFRNet.shard() over the visible card bit-equal to embed; over
+    cuda:0 twice (the split, pad and gather on the card) within PATH_TOL,
+    with two forwards' launches a call; an EmbeddingService over it."""
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ffrnet_torch.serving import EmbeddingService
+
+    model = models["fused"]
+    faces = torch.randint(0, 256, (max(SHARD_NS), 112, 112, 3), generator=gen(140),
+                          dtype=torch.uint8).numpy()
+    one, two = model.shard(), model.shard(["cuda:0", "cuda:0"])
+    if one.devices != (torch.device("cuda", 0),) or len(two.replicas) != 1:
+        raise AssertionError(f"shard: devices {one.devices}, {two.devices}")
+    total = {k: 0 for k in KERNELS}
+    errs = []
+    for n in SHARD_NS:
+        want = model.embed(faces[:n])
+        for name, sharded, forwards in (("shard()", one, 1), ("shard(cuda:0 x2)", two, 2)):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            got = sharded.embed(faces[:n])
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            expected = {k: DRIVER_COUNTS["fused", "eval"].get(k, 0) * forwards for k in KERNELS}
+            if counts != expected:
+                raise AssertionError(f"{name} N={n}: launches {counts}, expected {expected}")
+            for k in total:
+                total[k] += counts[k]
+            if forwards == 1:
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"{name} N={n}: not bit-equal to embed")
+            else:
+                errs.append(max(check_close(f"{name} N={n}", a, b, *PATH_TOL)
+                                for a, b in zip(got, want)))
+    x = faces[:SERVE_POOL]
+    want = model.embed(x)[0]
+    with EmbeddingService(two, max_batch=16) as svc:
+        futs = [svc.submit(x[i:i + 1 + i % 3]) for i in range(0, SERVE_POOL - 3, 3)]
+        outs = [f.result(timeout=120) for f in futs]
+    serve_err = max(check_close("EmbeddingService over shard(cuda:0 x2)", raw.cpu(),
+                                want[i:i + len(raw)].cpu(), *PATH_TOL)
+                    for (raw, _), i in zip(outs, range(0, SERVE_POOL - 3, 3)))
+    log("data_parallel", f"FFRNet.shard() over {one.devices}: bit-equal to embed at N="
+        f"{', '.join(map(str, SHARD_NS))}, one forward's launches a call; shard over cuda:0 "
+        f"twice (padded to even, split, gathered): max_abs_err {max(errs):.3e} (tol {PATH_TOL}), "
+        f"two forwards' launches a call; EmbeddingService(max_batch=16) over it, {len(outs)} "
+        f"groups of 1-3 faces vs a direct embed: max_abs_err {serve_err:.3e}")
+    return total
+
+
+def phase_data_parallel(models, dev, card):
+    """Phase 13 -> the launch counts of its counted runs, summed."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    total = {k: 0 for k in KERNELS}
+    with tempfile.TemporaryDirectory(prefix="ffrnet_dp_") as root:
+        tree = os.path.join(root, "faces")
+        driver_tree(tree)
+        for part in (dp_steps_and_eval(tree, dev, card), dp_driver(tree, root, card),
+                     dp_shard(models, card)):
+            for k, v in part.items():
+                total[k] += v
+    torch.cuda.empty_cache()
+    log("data_parallel", f"all data-parallel checks passed in {time.perf_counter() - t0:.1f} s "
+        f"| {card}")
+    return total
+
+
 # ---------------------------------------------------------------------- main
 
 
@@ -2367,6 +2776,8 @@ def main():
     for k, v in int8_counts.items():
         counts[k] += v
     for k, v in phase_export(models, dev, smi).items():
+        counts[k] += v
+    for k, v in phase_data_parallel(models, dev, smi).items():
         counts[k] += v
     if counts["int8_conv"] == 0:
         raise AssertionError("int8_conv never launched on the int8 path")

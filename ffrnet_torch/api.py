@@ -10,10 +10,10 @@
     raw_emb, rect_emb = model.embed_files(paths, landmarks)  # decode -> embed
 
 Counterpart of ffrnet_tpu/api.py (inference: embed / featurize / verify /
-evaluate; ingest: align / embed_files). The public boundary keeps the JAX
-layout: images are (N, 112, 112, 3) BGR NHWC, uint8 or [-1, 1] float,
-and `featurize` returns the rectified map as NHWC (N, 7, 7, 512). Inside,
-everything is NCHW.
+evaluate; ingest: align / embed_files; data-parallel inference: shard).
+The public boundary keeps the JAX layout: images are (N, 112, 112, 3) BGR
+NHWC, uint8 or [-1, 1] float, and `featurize` returns the rectified map as
+NHWC (N, 7, 7, 512). Inside, everything is NCHW.
 
 Entry points default to device="cuda" and raise when there is no card;
 the CPU runs only when the caller asks for it (device="cpu"), and then
@@ -89,13 +89,21 @@ def forward_nhwc(encoder, recnet, dtype, x_nhwc):
 
 class FFRNet:
     """Frozen IR-SE50 encoder + RecNet, inference only (float, or int8
-    after prepare(quantize_int8=...))."""
+    after prepare(quantize_int8=...)); after shard(), over several devices.
 
-    def __init__(self, encoder, recnet, cfg: RecNetConfig, device):
+    replicas: (device, encoder, recnet) of each device after the first
+    (`self.device`) of a sharded model."""
+
+    def __init__(self, encoder, recnet, cfg: RecNetConfig, device, replicas=()):
         self.encoder = encoder
         self.recnet = recnet
         self.cfg = cfg
         self.device = torch.device(device)
+        self.replicas = tuple(replicas)
+
+    @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        return (self.device,) + tuple(d for d, _, _ in self.replicas)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -162,7 +170,7 @@ class FFRNet:
         if self.device.type == "cuda" and model.dtype == torch.float32:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
-        return model
+        return model._keep_sharding(self)
 
     def calibrate_int8(self, batches, *, margin: float = 1.0) -> "FFRNet":
         """A new FFRNet with static activation scales baked into its int8
@@ -190,7 +198,33 @@ class FFRNet:
                 featmaps = [enc(x)[0] for x in xb]
         if rec_q:
             rec = calibrate_recnet_activation_scales(rec, featmaps, margin=margin)
-        return FFRNet(enc, rec, self.cfg, self.device)
+        return FFRNet(enc, rec, self.cfg, self.device)._keep_sharding(self)
+
+    # -------------------------------------------------------------- sharding
+    def shard(self, devices=None) -> "FFRNet":
+        """Data-parallel inference over `devices` (default: every visible
+        card; ffrnet_tpu/api.py:207-260): a new FFRNet whose modules are
+        replicated on each device. Every embed / featurize / verify /
+        embed_files call pads its batch with zero faces to a multiple of the
+        device count, runs one equal shard on each device, gathers the
+        results on the first device and slices the padding off. Embeddings
+        are per-face, so the forward needs no collective."""
+        if devices is None:
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+            if not devices:
+                resolve_device("cuda")  # raises: no card
+        devs = [resolve_device(d) for d in devices]
+        if not devs:
+            raise ValueError("shard() needs at least one device")
+        enc, rec = self.encoder, self.recnet
+        if devs[0] != self.device:
+            enc, rec = copy.deepcopy(enc).to(devs[0]), copy.deepcopy(rec).to(devs[0])
+        replicas = [(d, copy.deepcopy(enc).to(d), copy.deepcopy(rec).to(d)) for d in devs[1:]]
+        return FFRNet(enc, rec, self.cfg, devs[0], replicas)
+
+    def _keep_sharding(self, source: "FFRNet") -> "FFRNet":
+        """`self` sharded over `source`'s devices when `source` is sharded."""
+        return self.shard(source.devices) if source.replicas else self
 
     # ------------------------------------------------------------- inference
     def _on_device(self, images) -> torch.Tensor:
@@ -207,7 +241,18 @@ class FFRNet:
 
     @torch.inference_mode()
     def _forward(self, x_nhwc):
-        return forward_nhwc(self.encoder, self.recnet, self.dtype, x_nhwc)
+        if not self.replicas:
+            return forward_nhwc(self.encoder, self.recnet, self.dtype, x_nhwc)
+        k, n = len(self.devices), x_nhwc.shape[0]
+        pad = -n % k
+        if pad:
+            x_nhwc = torch.cat([x_nhwc, x_nhwc.new_zeros((pad,) + tuple(x_nhwc.shape[1:]))])
+        mods = ((self.device, self.encoder, self.recnet),) + self.replicas
+        # each shard's launches queue on its own device before any result
+        # is gathered
+        outs = [forward_nhwc(enc, rec, self.dtype, x.to(d, non_blocking=True))
+                for (d, enc, rec), x in zip(mods, x_nhwc.chunk(k))]
+        return tuple(torch.cat([o[i].to(self.device) for o in outs])[:n] for i in range(3))
 
     def embed(self, images) -> Tuple[torch.Tensor, torch.Tensor]:
         """(N, 112, 112, 3) BGR -> (raw embedding (N, 512) L2-normed,

@@ -86,7 +86,8 @@ class Options:
     eval_freq: int = 100
     report_roc: int = 0           # test phase: also the exact-ROC operating points
     visualize: int = 0            # log the attention panel at each eval (train.py)
-    # parallelism: one card (0 or 1); more raises (ROADMAP Queue 1 item 6)
+    # parallelism: the data axis is the process group (0: its world size;
+    # else it must equal it); --mesh_model above 1 raises (ROADMAP Queue 1 item 2b)
     mesh_data: int = 0
     mesh_model: int = 1
     # test / misc
@@ -106,14 +107,13 @@ class Options:
 
     def check_ported(self) -> None:
         """Raise ValueError for a flag value whose feature the port lacks."""
-        if self.mesh_data not in (0, 1) or self.mesh_model != 1:
+        if self.mesh_model != 1:
             raise ValueError(
-                f"--mesh_data {self.mesh_data} --mesh_model {self.mesh_model}: the port "
-                "trains on one card; parallelism waits for ROADMAP Queue 1 item 6")
+                f"--mesh_model {self.mesh_model}: the port shards the data axis only; the "
+                "class-sharded head waits for ROADMAP Queue 1 item 2b")
         if self.ckpt_backend != "pth":
             raise ValueError(f"--ckpt_backend {self.ckpt_backend}: the port writes the pth "
-                             "store only; orbax-style sharded saves wait for ROADMAP "
-                             "Queue 1 item 6")
+                             "store only; sharded saves wait for ROADMAP Queue 1 item 2b")
         if self.ss_impl not in _RECNET:
             raise ValueError(f"--ss_impl must be one of {sorted(_RECNET)}, got "
                              f"{self.ss_impl!r}")

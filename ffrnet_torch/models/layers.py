@@ -11,8 +11,10 @@ JAX package (eval-mode BN with an fp32 rsqrt, for example).
   * ReluLayer: relu / leakyrelu(0.2) / prelu (per channel) / selu / none.
   * NormLayer: bn / in / gn(32) / pixel / layer / none. A bn layer follows
     `module.training`: in train mode it normalizes with the batch's
-    statistics and moves its running stats in place (momentum 0.1), unless
-    `running_stats_frozen` holds them; in eval mode it uses them.
+    statistics (the global batch's inside `ops.nn.batch_stats_group` of a
+    data-parallel step) and moves its running stats in place (momentum
+    0.1), unless `running_stats_frozen` holds them; in eval mode it uses
+    them.
   * ResidualBlock: two ConvLayers plus the identity.
 
 `init_*` functions fill a module as the JAX package's init does (kaiming
@@ -62,8 +64,8 @@ class NormLayer(nn.Module):
             if not self.training:
                 return ops.batch_norm(x, m.weight, m.bias, m.running_mean,
                                       m.running_var)
-            y, mean, var = ops.batch_norm_train(x, m.weight, m.bias,
-                                                m.running_mean, m.running_var)
+            y, mean, var = ops.batch_norm_train(x, m.weight, m.bias, m.running_mean,
+                                                m.running_var, group=ops.stats_group())
             if self.update_stats:
                 m.running_mean.copy_(mean)
                 m.running_var.copy_(var)

@@ -5,7 +5,10 @@ into its own shared library with a plain C interface, at first use, into
 `ffrnet_torch/_build/` (listed in `.gitignore`). A library's file name
 carries a hash of its sources and flags, so an edited kernel rebuilds and
 an unchanged one is reused. `build_all()` starts one `nvcc` per source,
-all at once, and waits for every one of them.
+all at once, and waits for every one of them. Processes that build at
+once (the ranks of a data-parallel run) take turns on a file lock in the
+build directory, so the first builds and the others find its libraries;
+each library appears by an atomic rename, never half-written.
 
 There is no fallback: a missing `nvcc` or a failed build raises.
 """
@@ -13,6 +16,7 @@ There is no fallback: a missing `nvcc` or a failed build raises.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -64,11 +68,17 @@ def build_all(names=KERNELS) -> float:
     """Compile every library of `names` that is not built yet, one nvcc
     each, in parallel. Returns the wall seconds spent; raises on failure."""
     t0 = time.perf_counter()
-    todo = [n for n in names if not library_path(n).exists()]
-    if not todo:
+    if all(library_path(n).exists() for n in names):
         return 0.0
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        _build((n for n in names if not library_path(n).exists()), nvcc)
+    return time.perf_counter() - t0
+
+
+def _build(todo, nvcc: str) -> None:
     procs = []
     for name in todo:
         out = library_path(name)
@@ -87,7 +97,6 @@ def build_all(names=KERNELS) -> float:
             os.replace(tmp, out)
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
-    return time.perf_counter() - t0
 
 
 def load(name: str, symbol: str, n_ptrs: int, n_ints: int):

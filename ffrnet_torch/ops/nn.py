@@ -10,6 +10,7 @@ follows the PyTorch reference modules.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -89,20 +90,56 @@ def batch_norm(x, scale, bias, running_mean, running_var, *, axis: int = 1,
         + bias.to(x.dtype).reshape(shape)
 
 
+_STATS_GROUP = None  # the data group whose ranks share train-mode BN statistics
+
+
+@contextlib.contextmanager
+def batch_stats_group(group):
+    """Inside, every train-mode BN that `stats_group()` reaches (models.layers
+    NormLayer) takes its statistics over the ranks of `group`, the global
+    batch of a data-parallel step (None: over the local batch). It holds
+    through the backward pass run inside it, where a checkpointed forward
+    is recomputed."""
+    global _STATS_GROUP
+    prev, _STATS_GROUP = _STATS_GROUP, group
+    try:
+        yield
+    finally:
+        _STATS_GROUP = prev
+
+
+def stats_group():
+    return _STATS_GROUP
+
+
 def batch_norm_train(x, scale, bias, running_mean, running_var, *, axis: int = 1,
-                     momentum: float = 0.1, eps: float = 1e-5):
+                     momentum: float = 0.1, eps: float = 1e-5, group=None):
     """Train-mode BatchNorm (ffrnet_tpu/ops/nn.py:114-150) -> (y, new_mean,
     new_var). The batch statistics are taken in fp32 whatever x's type; y
     is normalized with the biased variance, and the running variance moves
     toward the unbiased one with `momentum`. The new running stats are
     detached and keep the running stats' dtype; `num_batches_tracked` plays
-    no part (never the cumulative-average mode)."""
+    no part (never the cumulative-average mode).
+
+    group: a process group of more than one rank takes the statistics over
+    the global batch, as XLA does under a data-sharded mesh: the sums
+    all-reduced for the mean, then the centred squares for the variance,
+    n the global count. The all-reduces carry gradients, and every rank
+    gets the same statistics, so the running stats stay equal across
+    ranks. Shards must be of equal size."""
     shape = _chan_shape(x, axis)
     dims = tuple(d for d in range(x.ndim) if d != axis)
     xf = x.float()
-    mean = xf.mean(dim=dims)
-    var = (xf - mean.reshape(shape)).square().mean(dim=dims)
     n = x.numel() // x.shape[axis]
+    if group is None or torch.distributed.get_world_size(group) == 1:
+        mean = xf.mean(dim=dims)
+        var = (xf - mean.reshape(shape)).square().mean(dim=dims)
+    else:
+        from ffrnet_torch.parallel.collectives import all_reduce_sum
+
+        n *= torch.distributed.get_world_size(group)
+        mean = all_reduce_sum(xf.sum(dim=dims), group) / n
+        var = all_reduce_sum((xf - mean.reshape(shape)).square().sum(dim=dims), group) / n
     with torch.no_grad():
         unbiased = var * (n / max(n - 1, 1))
         new_mean = ((1 - momentum) * running_mean.float()

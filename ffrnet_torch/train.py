@@ -1,8 +1,10 @@
-"""Train / test driver for one card (ffrnet_tpu/train.py).
+"""Train / test driver (ffrnet_tpu/train.py), on one card or data-parallel
+over K (one process each).
 
     python -m ffrnet_torch.train --phase train --train_data <CASIA root> \\
         --train_img_list <list> --test_data <LFW root> --test_pair_list <pairs.txt> ...
     python -m ffrnet_torch.train --phase test --test_data <LFW root> ...
+    torchrun --nproc_per_node K -m ffrnet_torch.train --phase train ...
 
 The JAX package's flags (config.py) and cadence: the metrics of every
 iteration; a 'latest' checkpoint every max(save_freq//10, 1) iterations
@@ -17,6 +19,18 @@ The step's metrics are 0-d tensors on the card: they are queued, and
 fetched in one copy at each print, save, eval or preemption boundary,
 where every queued TotalLoss is checked to be finite before anything is
 written.
+
+Under a launcher (torchrun, or FFRNET_DISTRIBUTED=1 with RANK, WORLD_SIZE,
+LOCAL_RANK, MASTER_ADDR and MASTER_PORT) each rank joins the process group
+(NCCL, gloo with --device cpu) and the mesh's data axis is the world
+(--mesh_data 0, or equal to it): each rank loads its strided share of
+every global batch, the steps average their gradients and share RecNet's
+BN statistics, the queued metrics are averaged over the ranks once per
+fetch, rank 0 alone writes checkpoints and the feature cache (the others
+wait for it), every rank resumes from the same checkpoint, and an LFW eval
+scores a contiguous slice of the pairs per rank and gathers the scores.
+Ranks above 0 log under <log_dir>/<run>/rank<r>. A preemption signal is
+per process: the others then wait in their next collective.
 """
 
 from __future__ import annotations
@@ -31,6 +45,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ffrnet_torch import parallel
 from ffrnet_torch.api import resolve_device
 from ffrnet_torch.checkpoint.pth_io import (encoder_state_dict, load_pth,
                                             recnet_state_dict)
@@ -38,12 +53,14 @@ from ffrnet_torch.checkpoint.store import (load_checkpoint, optimizer_state,
                                            save_checkpoint)
 from ffrnet_torch.config import Options, parse_args
 from ffrnet_torch.data.datasets import CasiaPairs, LfwPairs, SyntheticPairs
-from ffrnet_torch.data.pipeline import BatchLoader
-from ffrnet_torch.eval.runner import evaluate_pairs, make_pair_score_fn
+from ffrnet_torch.data.pipeline import BatchLoader, SliceDataset
+from ffrnet_torch.eval.runner import (evaluate_pairs, evaluate_pairs_multiprocess,
+                                      make_pair_score_fn, process_pair_slice)
 from ffrnet_torch.models.irse import build_backbone, check_state_dict
 from ffrnet_torch.models.recnet import build_recnet
-from ffrnet_torch.training.trainer import (FEATURE_PACK, create_train_state, half_dtype,
-                                           load_train_state, train_step,
+from ffrnet_torch.parallel.collectives import average_tensor
+from ffrnet_torch.training.trainer import (FEATURE_PACK, bind_to_mesh, create_train_state,
+                                           half_dtype, load_train_state, train_step,
                                            train_step_from_features)
 from ffrnet_torch.utils.logger import Logger
 from ffrnet_torch.utils.timer import Timer
@@ -159,14 +176,19 @@ def make_train_dataset(opts: Options):
 def make_eval_batches(opts: Options, ocl_num: int, batch_size: int, device=None):
     """(the eval batches of one ocl level, the number of pairs). The
     reference's random eval flip is opt-in (--faithful_eval_flip 1); the
-    loader uploads each batch to `device` in its producer thread."""
+    loader uploads each batch to `device` in its producer thread. Over
+    several processes, the batches of this process's contiguous
+    process_pair_slice (the number is still that of the whole list)."""
     ds = LfwPairs(opts.test_data, opts.test_pair_list, test_ocl_num=ocl_num,
                   flip_prob=0.5 if opts.faithful_eval_flip else 0.0,
                   host_normalize=bool(opts.host_normalize))
+    n_pairs = len(ds)
+    if parallel.world_size() > 1:
+        ds = SliceDataset(ds, process_pair_slice(n_pairs, parallel.rank(), parallel.world_size()))
     loader = BatchLoader(ds, batch_size, shuffle=False, drop_last=False, seed=opts.seed,
                          num_threads=opts.n_thread, device=device,
                          pack={"imgs": ("img1", "img2")} if opts.pack_upload else None)
-    return loader.epoch(0), len(ds)
+    return loader.epoch(0), n_pairs
 
 
 def eval_lfw(opts: Options, encoder, recnet, ocl_num: int, *,
@@ -176,20 +198,27 @@ def eval_lfw(opts: Options, encoder, recnet, ocl_num: int, *,
     also when the eval raises).
 
     dump_wrong_to: write each misclassified pair's images under
-    <dump_wrong_to>/wrong_images{,_new}_ocl{n}/. metrics_out: filled with
-    the exact-ROC operating points {"new"/"raw": {"tar@far", "eer", "auc"}}.
+    <dump_wrong_to>/wrong_images{,_new}_ocl{n}/ (rank 0 alone over several
+    processes). metrics_out: filled with the exact-ROC operating points
+    {"new"/"raw": {"tar@far", "eer", "auc"}}.
     """
     from ffrnet_torch.eval.lfw import misclassified_indices, roc_metrics
     from ffrnet_torch.eval.runner import save_wrong_images
 
+    if parallel.rank() != 0:
+        dump_wrong_to = None
     was_training = recnet.training
     recnet.eval()
     try:
         device = encoder.input_layer[0].weight.device
-        batches, _ = make_eval_batches(opts, ocl_num, opts.batch_size, device=device)
+        batches, n_pairs = make_eval_batches(opts, ocl_num, opts.batch_size, device=device)
         want_scores = dump_wrong_to is not None or metrics_out is not None
-        out = evaluate_pairs(make_pair_score_fn(encoder, recnet), batches,
-                             return_scores=want_scores)
+        score_fn = make_pair_score_fn(encoder, recnet)
+        if parallel.world_size() > 1:
+            out = evaluate_pairs_multiprocess(score_fn, batches, n_pairs=n_pairs,
+                                              return_scores=want_scores)
+        else:
+            out = evaluate_pairs(score_fn, batches, return_scores=want_scores)
     finally:
         recnet.train(was_training)
     res_new, res_raw = out[:2]
@@ -279,8 +308,30 @@ def train(opts: Options) -> None:
         guard.uninstall()
 
 
+def _run_name(opts: Options) -> str:
+    """The logger's run directory: ranks above 0 log beside rank 0's."""
+    r = parallel.rank()
+    return opts.save_weight_dir if r == 0 else os.path.join(opts.save_weight_dir, f"rank{r}")
+
+
+def make_train_mesh(opts: Options):
+    """The ('data', 'model') mesh of a training run, its data axis the
+    world (ffrnet_tpu/train.py:423-424), validated with the JAX package's
+    messages and the global batch checked against it."""
+    world = parallel.world_size()
+    mesh = parallel.make_mesh(n_data=opts.mesh_data or None, n_model=opts.mesh_model)
+    n_data = parallel.mesh_axes(mesh)["data"]
+    if n_data != world:
+        raise ValueError(f"--mesh_data {opts.mesh_data} uses {n_data} of the {world} ranks: the "
+                         f"data axis is the process group; pass --mesh_data 0 or {world}")
+    parallel.validate_batch_for_mesh(mesh, opts.batch_size)
+    return mesh
+
+
 def _train(opts: Options, guard: PreemptionGuard) -> None:
-    logger = Logger(opts.log_dir, opts.save_weight_dir, phase="train")
+    mesh = make_train_mesh(opts)
+    rank, world = parallel.rank(), parallel.world_size()
+    logger = Logger(opts.log_dir, _run_name(opts), phase="train")
     timer = Timer()
     cfg = opts.trainer_config()
     device = resolve_device(opts.device)
@@ -299,6 +350,7 @@ def _train(opts: Options, guard: PreemptionGuard) -> None:
     elif opts.recnet_weights:
         state.model.load_state_dict(recnet_state_dict(load_pth(opts.recnet_weights),
                                                       cfg.recnet))
+    group = bind_to_mesh(mesh, state)  # the data group (None for one rank)
 
     if opts.cache_features:
         # the frozen encoder runs once over every (sample, flip); the steps
@@ -322,10 +374,16 @@ def _train(opts: Options, guard: PreemptionGuard) -> None:
         # caches never collide
         factory = ((lambda: prepare_int8_encoder(encoder, flipfree, cfg.compute_dtype))
                    if opts.int8_encoder else None)
-        build_feature_cache(flipfree, encoder, cache_dir, batch_size=opts.batch_size,
-                            compute_dtype=cfg.compute_dtype, num_threads=opts.n_thread,
-                            encoder_factory=factory,
-                            fingerprint_extra="int8-static-v1" if opts.int8_encoder else "")
+        build_kw = dict(batch_size=opts.batch_size, compute_dtype=cfg.compute_dtype,
+                        num_threads=opts.n_thread, encoder_factory=factory,
+                        fingerprint_extra="int8-static-v1" if opts.int8_encoder else "")
+        if world > 1:  # rank 0 builds into the shared dir; the others wait for it
+            from ffrnet_torch.training.feature_cache import build_feature_cache_shared
+
+            build_feature_cache_shared(flipfree, encoder, cache_dir, process_index=rank,
+                                       group=parallel.host_group(), **build_kw)
+        else:
+            build_feature_cache(flipfree, encoder, cache_dir, **build_kw)
         dataset = CachedFeatureDataset(cache_dir, flip_prob=flip_prob)
         if opts.int8_encoder:
             print("[info] feature cache built with the int8-static encoder (its quantization "
@@ -334,7 +392,7 @@ def _train(opts: Options, guard: PreemptionGuard) -> None:
         pack = FEATURE_PACK if opts.pack_upload else None
 
         def step(batch):
-            return train_step_from_features(state, to_nchw(batch), cfg=cfg)
+            return train_step_from_features(state, to_nchw(batch), cfg=cfg, group=group)
     else:
         half = half_dtype(cfg.compute_dtype)
         if opts.int8_encoder:  # the step's frozen forward runs int8; eval keeps `encoder`
@@ -344,16 +402,18 @@ def _train(opts: Options, guard: PreemptionGuard) -> None:
         pack = {"imgs": ("img_non", "img_ocl")} if opts.pack_upload else None
 
         def step(batch):
-            return train_step(step_encoder, state, batch, cfg=cfg)
+            return train_step(step_encoder, state, batch, cfg=cfg, group=group)
 
     def save_now(name: str, epoch: int, iteration: int) -> None:
-        save_checkpoint(opts.ckpt_dir, name, model=state.model,
-                        optimizer=state.optimizer.inner, epoch=epoch, iteration=iteration)
+        if rank == 0:  # one writer of the shared pth store; the ranks' states are equal
+            save_checkpoint(opts.ckpt_dir, name, model=state.model,
+                            optimizer=state.optimizer.inner, epoch=epoch, iteration=iteration)
         timer.update_time("Save")  # the write stays out of the next DataTime
 
     loader = BatchLoader(dataset, opts.batch_size, shuffle=not opts.debug,
                          drop_last=not opts.debug, seed=opts.seed,
-                         num_threads=opts.n_thread, device=device, pack=pack)
+                         num_threads=opts.n_thread, device=device, pack=pack,
+                         process_index=rank, process_count=world)
 
     logger.record_text("model_config", opts.config_string)
     cur_iters = start_iter
@@ -366,12 +426,17 @@ def _train(opts: Options, guard: PreemptionGuard) -> None:
     def flush_metrics() -> None:
         """Fetch and log the queued metrics, and raise on a non-finite
         TotalLoss: this runs before every checkpoint write, so a poisoned
-        step never reaches a checkpoint."""
+        step never reaches a checkpoint. Over several ranks the metrics are
+        averaged in one collective (each is a mean over an equal shard), at
+        the same iterations on every rank."""
         if not pending:
             return
         keys = [k for k in pending[0][2] if k != "LR"]
-        fetched = torch.stack([torch.stack([m[k].detach().float() for k in keys])
-                               for _, _, m in pending]).cpu().tolist()
+        stacked = torch.stack([torch.stack([m[k].detach().float() for k in keys])
+                               for _, _, m in pending])
+        if group is not None:
+            stacked = average_tensor(stacked, group)
+        fetched = stacked.cpu().tolist()
         queued, pending[:] = list(pending), []
         for (it, ep, m), row in zip(queued, fetched):
             logger.set_current_iter(it, ep)
@@ -433,7 +498,7 @@ def _train(opts: Options, guard: PreemptionGuard) -> None:
                     logger.record_scalar({"acc": acc}, f"test_acc/ocl{ocl}")
                     logger.record_scalar({"acc_new": acc_new}, f"test_acc/ocl{ocl}")
                     print(f"test result ocl{ocl}: acc_new {acc_new:.4f} acc {acc:.4f}")
-                if opts.visualize:
+                if opts.visualize and world == 1:
                     log_attention_visual(opts, encoder, state.model, logger, cur_iters)
                 timer.update_time("Eval")
             if opts.debug:
@@ -443,7 +508,7 @@ def _train(opts: Options, guard: PreemptionGuard) -> None:
 
 
 def test(opts: Options) -> None:
-    logger = Logger(opts.log_dir, opts.save_weight_dir, phase="test")
+    logger = Logger(opts.log_dir, _run_name(opts), phase="test")
     cfg = opts.trainer_config()
     device = resolve_device(opts.device)
     encoder = load_encoder(opts, device)
@@ -479,10 +544,18 @@ def test(opts: Options) -> None:
 def main(argv=None):
     opts = parse_args(argv)
     np.random.seed(opts.seed)
-    if opts.phase == "train":
-        train(opts)
-    else:
-        test(opts)
+    joined = not torch.distributed.is_initialized()
+    dev = parallel.maybe_init_distributed(opts.device)
+    if dev is not None:
+        opts.device = str(dev)
+    try:
+        if opts.phase == "train":
+            train(opts)
+        else:
+            test(opts)
+    finally:
+        if dev is not None and joined:
+            parallel.shutdown_distributed()
 
 
 if __name__ == "__main__":

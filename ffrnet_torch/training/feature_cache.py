@@ -18,6 +18,12 @@ meta.json is written last, so a crashed build never looks complete.
 
 Exact only for datasets whose one random augmentation is the paired flip
 (CasiaPairs); a SyntheticPairs cache freezes its noise draw.
+
+Several processes over one shared cache_dir (`build_feature_cache_shared`,
+ffrnet_tpu/train.py:483-521): process 0 builds; the others watch for the
+meta.json of the build they expect and for the build's heartbeat on
+its lock (`lock_age_s`), and meet at a barrier after. A barrier alone would
+be held through the whole build, longer than a process group's timeout.
 """
 
 from __future__ import annotations
@@ -102,6 +108,21 @@ def cache_fingerprint(dataset, encoder: torch.nn.Module, extra: str = "") -> str
     return h.hexdigest()
 
 
+def cache_meta(dataset, encoder: torch.nn.Module, compute_dtype: str,
+               fingerprint_extra: str = "") -> dict:
+    """The meta.json of a complete cache of `dataset` by `encoder`."""
+    return {"n": len(dataset), "compute_dtype": compute_dtype, "version": 2,
+            "fingerprint": cache_fingerprint(dataset, encoder, fingerprint_extra)}
+
+
+def _has_meta(cache_dir: str, meta: dict) -> bool:
+    try:
+        with open(os.path.join(cache_dir, _META)) as f:
+            return json.load(f) == meta
+    except (OSError, ValueError):  # absent, or caught while written
+        return False
+
+
 @torch.no_grad()
 def build_feature_cache(dataset, encoder: torch.nn.Module, cache_dir: str, *,
                         batch_size: int = 256, compute_dtype: str = "fp32",
@@ -126,8 +147,7 @@ def build_feature_cache(dataset, encoder: torch.nn.Module, cache_dir: str, *,
         raise ValueError("build_feature_cache needs a flip-free dataset (flip_prob=0); "
                          "the flip variants are made on the device")
     n = len(dataset)
-    meta = {"n": n, "compute_dtype": compute_dtype, "version": 2,
-            "fingerprint": cache_fingerprint(dataset, encoder, fingerprint_extra)}
+    meta = cache_meta(dataset, encoder, compute_dtype, fingerprint_extra)
     meta_path = os.path.join(cache_dir, _META)
     if os.path.exists(meta_path):
         with open(meta_path) as f:
@@ -188,6 +208,41 @@ def build_feature_cache(dataset, encoder: torch.nn.Module, cache_dir: str, *,
         os.remove(os.path.join(cache_dir, _LOCK))
     except OSError:
         pass
+    return cache_dir
+
+
+def build_feature_cache_shared(dataset, encoder: torch.nn.Module, cache_dir: str, *,
+                               process_index: int, group=None, poll_s: float = 2.0,
+                               **build_kw) -> str:
+    """`build_feature_cache` by one of several processes over a shared
+    cache_dir. Process 0 builds. Another waits until the meta.json of the
+    cache it expects appears; if neither that meta nor a live lock has
+    appeared after FFRNET_CACHE_GRACE_S seconds (default 300), cache_dir is
+    local to its host and it builds there itself; a lock whose heartbeat
+    is older than FFRNET_CACHE_STALE_S (default 1800) raises. Then every
+    process meets at a barrier of `group` (a group for host collectives)."""
+    import torch.distributed as dist
+
+    if process_index == 0:
+        build_feature_cache(dataset, encoder, cache_dir, **build_kw)
+    else:
+        want = cache_meta(dataset, encoder, build_kw.get("compute_dtype", "fp32"),
+                          build_kw.get("fingerprint_extra", ""))
+        grace = time.time() + float(os.environ.get("FFRNET_CACHE_GRACE_S", "300"))
+        stale_s = float(os.environ.get("FFRNET_CACHE_STALE_S", "1800"))
+        while not _has_meta(cache_dir, want):
+            age = lock_age_s(cache_dir)
+            if age is None and time.time() > grace:  # no meta, no lock: a host-local dir
+                build_feature_cache(dataset, encoder, cache_dir, **build_kw)
+                break
+            if age is not None and age > stale_s:
+                raise RuntimeError(
+                    f"feature-cache build heartbeat in {cache_dir} is {age:.0f}s stale — the "
+                    "building process likely crashed; remove building.lock (and any partial .npy "
+                    "files) and restart")
+            time.sleep(poll_s)
+    if dist.is_initialized():
+        dist.barrier(group=group)
     return cache_dir
 
 

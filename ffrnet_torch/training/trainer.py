@@ -22,8 +22,16 @@ optimizer stay in fp32. The frozen features come in the compute type.
 first forward left them (`layers.running_stats_frozen`).
 
 Feature dicts are NCHW: featmap_* (N, 512, 7, 7); the JAX package's are
-NHWC. The class-axis padding and the mesh binding wait for the port's
-parallelism.
+NHWC.
+
+Data parallelism (`make_distributed_step`, `make_distributed_feature_step`,
+or `group=` of the steps): each rank runs the step on its shard of the
+global batch; RecNet's train-mode BNs take the global batch's statistics
+(ops.nn.batch_stats_group), and the gradients are averaged over the data
+group between the backward pass and the clip, as the JAX package clips
+the global gradient. The returned metrics are the rank's own (means over
+its shard); `parallel.collectives.average_tensor` gives the global ones.
+The class axis ('model' > 1) waits for ROADMAP Queue 1 item 2b.
 """
 
 from __future__ import annotations
@@ -39,7 +47,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ffrnet_torch.models import layers as L
 from ffrnet_torch.models.recnet import RecNet, RecNetConfig, build_recnet
-from ffrnet_torch.ops.nn import images_to_unit_range, tree_cast_floats
+from ffrnet_torch.ops.nn import batch_stats_group, images_to_unit_range, tree_cast_floats
+from ffrnet_torch.parallel import collectives, data_group, group_size, mesh_axes
 from ffrnet_torch.training import losses, optimizers, schedules
 
 
@@ -119,15 +128,18 @@ def create_train_state(cfg: TrainerConfig, *, seed: int = 1, device="cuda") -> T
 def load_train_state(state: TrainState, recnet_sd, optimizer_state, step: int) -> TrainState:
     """Put a carried-over state into `state` (the trees of
     `checkpoint.convert.train_state_dicts`): RecNet's parameters and running
-    stats, each parameter's optimizer state by key, and the update count."""
+    stats, a copy of each parameter's optimizer state by key, and the
+    update count."""
     state.model.load_state_dict(recnet_sd)
     params = dict(state.model.named_parameters())
     inner = state.optimizer.inner
     inner.state.clear()
     for key, st in optimizer_state.items():
         p = params[key]
-        inner.state[p] = {k: v.to(p.device) if isinstance(v, torch.Tensor) and v.ndim else v
-                          for k, v in st.items()}
+        # copies: the optimizer updates its state in place, and the caller's
+        # trees must not move with it
+        inner.state[p] = {k: v.to(p.device, copy=True) if isinstance(v, torch.Tensor) and v.ndim
+                          else v for k, v in st.items()}
     state.step = step
     return state
 
@@ -176,11 +188,14 @@ def _unpack(feats):
     return feats["featmap_non"], feats["featmap_ocl"], feats["embed_non"], feats["embed_ocl"]
 
 
-def train_step_from_features(state: TrainState, feats, *, cfg: TrainerConfig):
+def train_step_from_features(state: TrainState, feats, *, cfg: TrainerConfig, group=None):
     """One update of RecNet from frozen-encoder features (fresh from
     `encode_frozen`, or cached; host arrays are moved to the state's
     device). Returns (state, metrics), the metrics 0-d tensors on the
-    device except LR (a float)."""
+    device except LR (a float). group: the data group when `feats` is
+    this rank's shard of a global batch."""
+    if group_size(group) == 1:
+        group = None
     model = state.model
     dev = state.device
     half = half_dtype(cfg.compute_dtype)
@@ -202,15 +217,18 @@ def train_step_from_features(state: TrainState, feats, *, cfg: TrainerConfig):
     else:
         run = branch
 
-    out_non = run(featmap_non)
-    out_ocl = run(featmap_ocl)
-    lb = losses.ffrnet_objective(
-        featmap_non=featmap_non, embed_non=embed_non, embed_ocl=embed_ocl,
-        out_non=out_non, out_ocl=out_ocl, labels=labels, loss_weight=cfg.loss_weight,
-        faithful_ce_weight=cfg.faithful_ce_weight, ss_impl=cfg.recnet.ss_impl,
-        ss_loss_impl=cfg.ss_loss_impl)
-    state.optimizer.zero_grad()
-    lb.total.backward()
+    with batch_stats_group(group):  # the recompute of --remat runs inside, too
+        out_non = run(featmap_non)
+        out_ocl = run(featmap_ocl)
+        lb = losses.ffrnet_objective(
+            featmap_non=featmap_non, embed_non=embed_non, embed_ocl=embed_ocl,
+            out_non=out_non, out_ocl=out_ocl, labels=labels, loss_weight=cfg.loss_weight,
+            faithful_ce_weight=cfg.faithful_ce_weight, ss_impl=cfg.recnet.ss_impl,
+            ss_loss_impl=cfg.ss_loss_impl)
+        state.optimizer.zero_grad()
+        lb.total.backward()
+    if group is not None:  # the global gradient, then the clip
+        collectives.average_gradients(state.optimizer.params, group)
     lr = state.optimizer.step(state.step)
     state.step += 1
     metrics = {
@@ -227,16 +245,55 @@ def train_step_from_features(state: TrainState, feats, *, cfg: TrainerConfig):
     return state, metrics
 
 
-def train_step(encoder, state: TrainState, batch, *, cfg: TrainerConfig):
+def train_step(encoder, state: TrainState, batch, *, cfg: TrainerConfig, group=None):
     """One update from a paired image batch: encode_frozen, then
     train_step_from_features. The encoder is a Backbone on the state's
-    device, in the compute type (`encoder.to(torch.bfloat16)` for bf16)."""
+    device, in the compute type (`encoder.to(torch.bfloat16)` for bf16).
+    group: the data group when `batch` is this rank's shard."""
     want = half_dtype(cfg.compute_dtype) or torch.float32
     have = encoder.input_layer[0].weight.dtype
     if have != want:
         raise ValueError(f"train_step: the encoder is {have}, compute_dtype "
                          f"{cfg.compute_dtype!r} needs {want}")
-    return train_step_from_features(state, encode_frozen(encoder, batch), cfg=cfg)
+    return train_step_from_features(state, encode_frozen(encoder, batch), cfg=cfg, group=group)
+
+
+def bind_to_mesh(mesh, state: TrainState):
+    """-> the data group of `mesh` for `state`'s steps (None for one rank),
+    with rank 0's RecNet parameters and buffers broadcast to every rank.
+    The classifier is not padded: the 'model' axis is 1 (padded_num_classes
+    of any class count over 1 is the count itself)."""
+    if mesh_axes(mesh)["model"] != 1:
+        raise NotImplementedError(
+            f"mesh {mesh_axes(mesh)}: the class-sharded head ('model' > 1) waits for "
+            "ROADMAP Queue 1 item 2b")
+    group = data_group(mesh)
+    if group is not None:
+        collectives.broadcast_tensors(state.model.state_dict().values(), group)
+    return group
+
+
+def _check_layout(batch, keys, packed):
+    if (keys[0] in batch) != packed:
+        raise ValueError(f"the step was bound with packed={packed}; the batch has keys "
+                         f"{sorted(batch)}")
+
+
+def make_distributed_step(mesh, cfg: TrainerConfig, encoder, state: TrainState,
+                          packed: bool = False):
+    """Bind train_step to a mesh (ffrnet_tpu/training/trainer.py:301-343).
+
+    Returns (step, (encoder, state)); call step(encoder, state, batch) on
+    every rank with its shard of the global batch ('imgs' and 'label' if
+    packed, else 'img_non', 'img_ocl', 'label'). The metrics are the rank's
+    own."""
+    group = bind_to_mesh(mesh, state)
+
+    def step(encoder, state, batch):
+        _check_layout(batch, ("imgs",), packed)
+        return train_step(encoder, state, batch, cfg=cfg, group=group)
+
+    return step, (encoder, state)
 
 
 FEATURE_KEYS = ("featmap_non", "featmap_ocl", "embed_non", "embed_ocl", "label")
@@ -245,3 +302,18 @@ PACKED_FEATURE_KEYS = ("featmaps", "embeds", "label")
 #: the pack= spec that gives the packed layout from FEATURE_KEYS
 FEATURE_PACK = {"featmaps": ("featmap_non", "featmap_ocl"),
                 "embeds": ("embed_non", "embed_ocl")}
+
+
+def make_distributed_feature_step(mesh, cfg: TrainerConfig, state: TrainState,
+                                  packed: bool = False):
+    """Bind train_step_from_features to a mesh (feature-cached training;
+    ffrnet_tpu/training/trainer.py:360-392). Returns (step, state); call
+    step(state, feats) on every rank with its shard (PACKED_FEATURE_KEYS
+    if packed, else FEATURE_KEYS)."""
+    group = bind_to_mesh(mesh, state)
+
+    def step(state, feats):
+        _check_layout(feats, PACKED_FEATURE_KEYS, packed)
+        return train_step_from_features(state, feats, cfg=cfg, group=group)
+
+    return step, state

@@ -71,11 +71,15 @@ def test_flag_surface_matches_jax(argv, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--mesh_data", "2"], "item 6"), (["--mesh_model", "2"], "item 6"),
-    (["--ckpt_backend", "orbax"], "item 6"), (["--ss_impl", "triton"], "ss_impl")])
+    (["--mesh_data", "2"], "needs 2 devices but only 1"), (["--mesh_model", "2"], "item 2b"),
+    (["--ckpt_backend", "orbax"], "item 2b"), (["--ss_impl", "triton"], "ss_impl")])
 def test_unported_flags_raise(argv, item):
+    """The class axis and sharded saves raise at parsing, naming their
+    ROADMAP item; --mesh_data parses, and a data axis larger than the
+    world (one process here) raises make_mesh's message."""
     with pytest.raises(ValueError, match=item):
-        parse_args(argv, make_dirs=False)
+        opts = parse_args(argv, make_dirs=False)
+        train_mod.make_train_mesh(opts)
 
 
 class StandIn(torch.nn.Module):
