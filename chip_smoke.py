@@ -1,4 +1,4 @@
-"""Drive the PyTorch/H100 port's inference, ingest, training, serving, export and data-parallel paths on one NVIDIA GPU.
+"""Drive the PyTorch/H100 port's inference, ingest, training, serving, export, data-parallel and model-axis paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -104,6 +104,20 @@ exits non-zero without a result line:
               (the pad, split and gather) within 1e-4, and an
               EmbeddingService over it; each rank's step ms beside the one
               process's
+ 14. model_axis
+              the class-sharded CosFace head (10575 classes padded to 10576,
+              5288 rows a rank) under gloo on cuda:0: make_distributed_step
+              (fused) on a 1x2 mesh (2 ranks) and make_distributed_feature_step
+              (ss_kernel) on a 2x2 mesh (4 ranks), 2 SGD updates on a global
+              batch of 64 against one process (parameters 2e-5, losses 1e-4
+              rel, TrainAcc equal, padded row and momentum exactly 0,
+              checksums equal, launches per rank per step exact); the 2x2
+              state saved by save_orbax, loaded under 1x2 and in one process
+              bit-equal, one more update each against an uninterrupted run;
+              the driver with --ckpt_backend orbax under NCCL at world size 1
+              (kept steps, the resumed state bit-equal to the step it loads,
+              step 8 within 2e-5 of an uninterrupted run) and --mesh_model 2
+              refused; step, save_orbax and load_orbax ms
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit as nvidia-smi gives them, and the result line
@@ -2746,6 +2760,507 @@ def phase_data_parallel(models, dev, card):
     return total
 
 
+# ----------------------------------------------------------------- phase 14
+
+TP_BATCH, TP_STEPS = 64, 2
+# SGD with momentum, as phase 13 (the update is linear in the gradient);
+# the momentum buffer is the padded row's optimizer state
+TP_OPT = dict(optimizer="sgd", lr=1e-3, momentum=0.9)
+# the JAX package's tensor-parallel bound (tests/test_training.py:716)
+TP_PARAM_ATOL = 2e-5
+# (RecNet configuration, step, (data, model) mesh, launches per rank per step)
+TP_KINDS = (("fused", "train_step", (1, 2), {"se_gating": 24}),
+            ("ss_kernel", "train_step_from_features", (2, 2), {"self_similarity": 7}))
+
+
+def tp_digest(trees):
+    """sha256 of a (state dict, optimizer state by key) pair, on the CPU."""
+    import hashlib
+
+    sd, opt = trees
+    h = hashlib.sha256()
+    for k in sorted(sd):
+        h.update(k.encode())
+        h.update(sd[k].detach().cpu().contiguous().numpy().tobytes())
+    for k in sorted(opt):
+        for e in sorted(opt[k]):
+            v = opt[k][e]
+            h.update(f"{k}/{e}".encode())
+            h.update(v.detach().cpu().contiguous().numpy().tobytes() if torch.is_tensor(v)
+                     else repr(v).encode())
+    return h.hexdigest()
+
+
+def tp_replicated_checksum(state):
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in state.model.state_dict().items():
+        if k != "classifier.weight":
+            h.update(k.encode())
+            h.update(v.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def tp_run(step, state, batches, d, n_data, world):
+    """The updates of one rank on its data coordinate's shard -> per step
+    (host ms, launches, metrics averaged over every rank, replicated
+    checksum), the state."""
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ffrnet_torch.parallel.collectives import average_tensor
+
+    out = []
+    for b in batches:
+        n = len(b["label"]) // n_data
+        local = {k: v[d * n:(d + 1) * n] for k, v in b.items()}
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t = time.perf_counter()
+        state, m = step(state, local)
+        torch.cuda.synchronize()
+        ms, counts = (time.perf_counter() - t) * 1e3, launch_counts()
+        metrics = {k: float(v) if k == "LR" or world == 1 else float(average_tensor(
+            v.float(), torch.distributed.group.WORLD)) for k, v in m.items()}
+        out.append((ms, counts, metrics, tp_replicated_checksum(state)))
+    return out, state
+
+
+def tp_shard_record(state):
+    """This rank's class shard: offset, rows, sha256 of its rows, and
+    whether its padded rows and their momentum are exactly 0."""
+    import hashlib
+
+    p = state.model.classifier.weight
+    num, off = state.model.cfg.num_classes, state.model.classifier.class_offset
+    real = min(max(num - off, 0), p.shape[0])
+    buf = state.optimizer.inner.state[p]["momentum_buffer"]
+    return {"offset": off, "rows": p.shape[0], "padded": p.shape[0] - real,
+            "sha": hashlib.sha256(p.detach().cpu().numpy().tobytes()).hexdigest(),
+            "zero": bool((p[real:] == 0).all()) and bool((buf[real:] == 0).all())}
+
+
+def tp_rank(rank, world, port, path):
+    """One rank of phase 14 on cuda:0 under a gloo group. World 4: the
+    ss_kernel feature step on a 2x2 mesh for TP_STEPS updates, then
+    save_orbax of its state. World 2: the fused train_step on a 1x2 mesh;
+    then the 2x2 checkpoint loaded and bound under 1x2 and one more
+    feature update. Writes path.<world>.<rank>."""
+    import torch.distributed as dist
+
+    from ffrnet_torch import parallel
+    from ffrnet_torch.checkpoint.orbax_io import (load_orbax, save_orbax,
+                                                  state_dicts_from_tree, train_state_tree)
+    from ffrnet_torch.models.irse import build_backbone
+    from ffrnet_torch.training.trainer import (create_train_state, gather_train_state,
+                                               load_train_state, make_distributed_feature_step,
+                                               make_distributed_step)
+
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"phase 14 rank {rank}: no card")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inp = torch.load(path, weights_only=False)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        res = {}
+        name, what, shape, _ = TP_KINDS[1] if world == 4 else TP_KINDS[0]
+        mesh = parallel.make_mesh(*shape)
+        d, _ = parallel.mesh_coordinate(mesh)
+        cfg = train_cfg(name, **TP_OPT)
+        state = create_train_state(cfg, seed=1, device=dev)
+        if what == "train_step":
+            enc = build_backbone(generator=gen(0)).to(dev).eval()
+            bound, (enc, state) = make_distributed_step(mesh, cfg, enc, state)
+            step, batches = functools.partial(bound, enc), inp["batches"]
+        else:
+            step, state = make_distributed_feature_step(mesh, cfg, state)
+            batches = [{k: v.to(dev) for k, v in f.items()} for f in inp["feats"][:TP_STEPS]]
+        res["steps"], state = tp_run(step, state, batches, d, shape[0], world)
+        res["shard"] = tp_shard_record(state)
+        trees = gather_train_state(state, parallel.model_group(mesh))
+        res["digest"] = tp_digest(trees)
+        if rank == 0:
+            res["state"] = trees[0]
+        if world == 4:
+            tree = train_state_tree(state, mesh, epoch=0, iteration=TP_STEPS)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            save_orbax(inp["ckpt"], TP_STEPS, tree)
+            res["save_ms"] = (time.perf_counter() - t) * 1e3
+        else:  # resume the 2x2 ss_kernel checkpoint under 1x2
+            del state, step, bound, enc
+            cfg = train_cfg("ss_kernel", **TP_OPT)
+            t = time.perf_counter()
+            sd, opt, meta = state_dicts_from_tree(load_orbax(inp["ckpt"]))
+            res["load_ms"] = (time.perf_counter() - t) * 1e3
+            state = load_train_state(create_train_state(cfg, seed=2, device=dev), sd, opt,
+                                     meta["iter"])
+            step, state = make_distributed_feature_step(mesh, cfg, state)
+            res["loaded_digest"] = tp_digest(gather_train_state(state, parallel.model_group(mesh)))
+            res["loaded_shard"] = tp_shard_record(state)
+            feats = [{k: v.to(dev) for k, v in inp["feats"][TP_STEPS].items()}]
+            res["resumed_steps"], state = tp_run(step, state, feats, d, 1, world)
+            trees = gather_train_state(state, parallel.model_group(mesh))
+            if rank == 0:
+                res["resumed_state"] = trees[0]
+        torch.save(res, f"{path}.{world}.{rank}")
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_check_steps(what, ranks, ref_steps, want):
+    """The ranks' updates against one process: launches per rank per step,
+    equal checksums and metrics on every rank, losses 1e-4 rel, TrainAcc
+    equal. -> the expected launches."""
+    expected = {k: want.get(k, 0) for k in KERNELS}
+    for r, res in enumerate(ranks):
+        for i, (_, counts, m, sums) in enumerate(res):
+            if counts != expected:
+                raise AssertionError(f"model axis {what} rank {r} step {i}: launches {counts}, "
+                                     f"expected {expected}")
+            if (m, sums) != (ranks[0][i][2], ranks[0][i][3]):
+                raise AssertionError(f"model axis {what} rank {r} step {i}: metrics or "
+                                     "replicated checksum differ from rank 0's")
+    for (_, _, m, _), (_, _, m_ref, _) in zip(ranks[0], ref_steps):
+        for k in m_ref:
+            if k == "TrainAcc" and m[k] != m_ref[k]:
+                raise AssertionError(f"model axis {what}: TrainAcc {m[k]} vs one process "
+                                     f"{m_ref[k]}")
+            if abs(m[k] - m_ref[k]) > TRAIN_LOSS_RTOL * abs(m_ref[k]) + 1e-6:
+                raise AssertionError(f"model axis {what}: {k} {m[k]} vs one process {m_ref[k]}")
+    return expected
+
+
+def tp_compare_state(what, sd, ref_sd):
+    params = [k for k in ref_sd if "running" not in k and ref_sd[k].is_floating_point()]
+    err = max(check_close(f"model axis {what} {k} vs one process", sd[k], ref_sd[k],
+                          TP_PARAM_ATOL, 0.0) for k in params)
+    stats = max((sd[k].float() - ref_sd[k].float()).abs().max().item()
+                for k in ref_sd if "running" in k)
+    return err, stats
+
+
+def tp_check_shards(what, shards, n_model):
+    """Rows 5288 a rank at offsets 5288 j, the padded row (model rank M-1's
+    last) and its momentum exactly 0, the shards equal across the data
+    axis."""
+    from ffrnet_torch.parallel import class_shard
+
+    for r, sh in enumerate(shards):
+        j = r % n_model
+        off, rows = class_shard(10575, n_model, j)
+        if (sh["offset"], sh["rows"]) != (off, rows) or not sh["zero"]:
+            raise AssertionError(f"model axis {what} rank {r}: shard {sh}, expected offset "
+                                 f"{off}, {rows} rows, padding exactly 0")
+        if sh["sha"] != shards[j]["sha"]:
+            raise AssertionError(f"model axis {what} rank {r}: class shard differs across the "
+                                 "data axis")
+    if shards[n_model - 1]["padded"] != 1:
+        raise AssertionError(f"model axis {what}: {shards[n_model - 1]['padded']} padded rows")
+
+
+def tp_label(model, feats, batch):
+    """Each sample of one global batch whose masked branch ranks one class
+    first by a margin of 1e-3 under `model` (train mode, as the step will
+    run it) takes that class as its label, in `feats` and `batch` alike ->
+    how many. TrainAcc is then not 0 and holds the sharded argmax, and the
+    margin keeps the runs' summation-order noise (about 1e-7) off its ties."""
+    import copy
+
+    rec = copy.deepcopy(model)  # a train-mode forward moves the running stats
+    with torch.no_grad():
+        out = rec(feats["featmap_ocl"].to(rec.classifier.weight.device),
+                  feats["label"].to(rec.classifier.weight.device))
+    top = out.cosine.topk(2, dim=1)
+    sure = ((top.values[:, 0] - top.values[:, 1]) > 1e-3).cpu()
+    batch["label"][sure] = feats["label"][sure] = top.indices[:, 0].cpu()[sure]
+    return int(sure.sum())
+
+
+def tp_io_ms(state, root):
+    """save_orbax, load_orbax and a pth save of the whole train state in one
+    process, twice each -> their ms."""
+    from ffrnet_torch.checkpoint.orbax_io import load_orbax, save_orbax, train_state_tree
+    from ffrnet_torch.checkpoint.store import save_checkpoint
+    from ffrnet_torch.parallel import make_mesh
+    from ffrnet_torch.training.trainer import gather_train_state
+
+    os.makedirs(root)
+    trees = gather_train_state(state)
+    io_ms = {"save_orbax": [], "load_orbax": [], "pth save": []}
+    for i in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        save_orbax(root, i, train_state_tree(state, make_mesh(), epoch=0, iteration=i))
+        io_ms["save_orbax"].append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        load_orbax(root, i)
+        io_ms["load_orbax"].append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        save_checkpoint(root, f"pth{i}", model=trees[0], optimizer=trees[1])
+        io_ms["pth save"].append((time.perf_counter() - t) * 1e3)
+    return io_ms
+
+
+def tp_steps_and_checkpoint(tree, dev, card):
+    """(a) and (b): the sharded steps against one process, and the 2x2
+    checkpoint loaded under 1x2 and in one process. -> launches."""
+    import torch.multiprocessing as mp
+
+    from ffrnet_torch.checkpoint.orbax_io import load_orbax, state_dicts_from_tree
+    from ffrnet_torch.models.irse import build_backbone
+    from ffrnet_torch.training.trainer import (create_train_state, encode_frozen,
+                                               load_train_state, train_step,
+                                               train_step_from_features)
+
+    enc = build_backbone(generator=gen(0)).to(dev).eval()
+    batches = [image_batch(TP_BATCH, 150 + i) for i in range(TP_STEPS + 1)]
+    feats = [{k: v.cpu() for k, v in encode_frozen(enc, b).items()} for b in batches]
+
+    def state_dict_of(state):
+        return {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+
+    # one process on the whole batches: ss_kernel 3 updates, each batch
+    # labelled first by tp_label under the state that takes it; then fused 2
+    ref, picked = {}, []
+    cfg = train_cfg("ss_kernel", **TP_OPT)
+    state = create_train_state(cfg, seed=1, device=dev)
+    step = functools.partial(train_step_from_features, cfg=cfg)
+    steps = []
+    for i, (b, f) in enumerate(zip(batches, feats)):
+        if i == TP_STEPS:
+            ref["ss_kernel"] = (list(steps), state_dict_of(state))
+            io_ms = tp_io_ms(state, os.path.join(tree, "tp_one"))
+        picked.append(tp_label(state.model, f, b))
+        out, state = tp_run(step, state, [{k: v.to(dev) for k, v in f.items()}], 0, 1, 1)
+        steps += out
+    ref["ss_kernel_3"] = (steps[TP_STEPS:], state_dict_of(state))
+    cfg = train_cfg("fused", **TP_OPT)
+    state = create_train_state(cfg, seed=1, device=dev)
+    steps, state = tp_run(functools.partial(train_step, enc, cfg=cfg), state,
+                          batches[:TP_STEPS], 0, 1, 1)
+    ref["fused"] = (steps, state_dict_of(state))
+    del state
+
+    ckpt = os.path.join(tree, "tp_ckpt")
+    os.makedirs(ckpt)
+    path = os.path.join(tree, "tp_inputs.pt")
+    torch.save({"batches": batches[:TP_STEPS], "feats": feats, "ckpt": ckpt}, path)
+    spawn_s = {}
+    for world in (4, 2):  # the 1x2 ranks load the 2x2 ranks' checkpoint
+        t0 = time.perf_counter()
+        mp.start_processes(tp_rank, args=(world, dp_free_port(), path), nprocs=world, join=True,
+                           start_method="spawn")
+        spawn_s[world] = time.perf_counter() - t0
+    ranks = {w: [torch.load(f"{path}.{w}.{r}", weights_only=False) for r in range(w)]
+             for w in (4, 2)}
+
+    total = {k: 0 for k in KERNELS}
+    for (name, what, shape, want), world in zip(TP_KINDS, (2, 4)):
+        res = ranks[world]
+        steps = [r["steps"] for r in res]
+        expected = tp_check_steps(f"{name} {what} {shape}", steps, ref[name][0], want)
+        for st in steps:
+            for _, c, _, _ in st:
+                for k in total:
+                    total[k] += c[k]
+        if len({r["digest"] for r in res}) != 1:
+            raise AssertionError(f"model axis {name}: the ranks gathered different states")
+        tp_check_shards(name, [r["shard"] for r in res], shape[1])
+        err, stats = tp_compare_state(f"{name} {shape}", res[0]["state"], ref[name][1])
+        s0 = steps[0]
+        log("model_axis", f"{name} {what} on a {shape[0]}x{shape[1]} mesh ({world} gloo ranks on "
+            f"cuda:0, {TP_BATCH // shape[0]} faces a rank), 10575 classes padded to 10576, "
+            f"5288 rows a rank, {TP_STEPS} SGD updates vs one process x {TP_BATCH}: parameters "
+            f"max_abs_err {err:.3e} (tol {TP_PARAM_ATOL}), running stats {stats:.3e} "
+            f"(reported), losses within {TRAIN_LOSS_RTOL} rel (TotalLoss "
+            f"{s0[0][2]['TotalLoss']:.4f}, {s0[-1][2]['TotalLoss']:.4f}), TrainAcc equal "
+            f"({s0[-1][2]['TrainAcc']:.4f}); replicated checksums equal on every rank, class "
+            f"shards equal across the data axis, the padded row and its momentum exactly 0; "
+            f"launches per rank per step { {k: v for k, v in expected.items() if v} }")
+        ms = [[f"{x[0]:.1f}" for x in st] for st in steps]
+        log("times", f"model axis {name} {what} {shape[0]}x{shape[1]}: step ms per rank "
+            f"{'; '.join(f'rank {r}: ' + ', '.join(m) for r, m in enumerate(ms))} (all ranks on "
+            f"one card) beside the one-process step ms at N={TP_BATCH} "
+            f"({', '.join(f'{x[0]:.1f}' for x in ref[name][0])}; the first step of each "
+            f"includes its warm-up) | {card}")
+
+    # the 2x2 checkpoint under 1x2 and in one process
+    saved = ranks[4][0]["digest"]
+    r2 = ranks[2]
+    if any(r["loaded_digest"] != saved for r in r2):
+        raise AssertionError("model axis: the 2x2 checkpoint loaded under 1x2 is not bit-equal "
+                             "to the saved state")
+    tp_check_shards("loaded under 1x2", [r["loaded_shard"] for r in r2], 2)
+    t = time.perf_counter()
+    tree_1 = load_orbax(ckpt)
+    one_load_ms = (time.perf_counter() - t) * 1e3
+    sd, opt, meta = state_dicts_from_tree(tree_1)
+    if tp_digest((sd, opt)) != saved or meta != {"epoch": 0, "iter": TP_STEPS, "step": TP_STEPS}:
+        raise AssertionError(f"model axis: the 2x2 checkpoint in one process is not bit-equal "
+                             f"to the saved state ({meta})")
+    cfg = train_cfg("ss_kernel", **TP_OPT)
+    state = load_train_state(create_train_state(cfg, seed=2, device=dev), sd, opt, meta["iter"])
+    step = functools.partial(train_step_from_features, cfg=cfg)
+    one, state = tp_run(step, state, [{k: v.to(dev) for k, v in feats[TP_STEPS].items()}], 0, 1,
+                        1)
+    want = {"self_similarity": 7}
+    tp_check_steps("ss_kernel resumed under 1x2", [r["resumed_steps"] for r in r2],
+                   ref["ss_kernel_3"][0], want)
+    tp_check_steps("ss_kernel resumed in one process", [one], ref["ss_kernel_3"][0], want)
+    for st in [r["resumed_steps"] for r in r2]:
+        for _, c, _, _ in st:
+            for k in total:
+                total[k] += c[k]
+    err_12, _ = tp_compare_state("resumed under 1x2", r2[0]["resumed_state"],
+                                 ref["ss_kernel_3"][1])
+    err_1, _ = tp_compare_state("resumed in one process",
+                                {k: v.detach().cpu() for k, v in state.model.state_dict().items()},
+                                ref["ss_kernel_3"][1])
+    log("model_axis", f"labels: {picked} of {TP_BATCH} a batch set to the first class of the "
+        "RecNet that takes it (a margin of 1e-3), the rest random")
+    log("model_axis", f"save_orbax of the 2x2 ss_kernel state (DCP, each rank its class rows, "
+        f"the rest once: {sorted(os.listdir(os.path.join(ckpt, 'orbax_000000002')))}); loaded "
+        f"under 1x2 and in one process bit-equal to the saved state (sha256 of the gathered "
+        f"state); one more update each vs an uninterrupted {TP_STEPS + 1}-update run: "
+        f"parameters max_abs_err {err_12:.3e} (1x2), {err_1:.3e} (one process), tol "
+        f"{TP_PARAM_ATOL}; ranks spawned and joined in {spawn_s[4]:.1f} s (2x2), "
+        f"{spawn_s[2]:.1f} s (1x2)")
+    log("times", f"sharded checkpoint of the full train state (RecNet, 10575 classes, SGD "
+        f"momentum): save_orbax in one process {', '.join(f'{x:.1f}' for x in io_ms['save_orbax'])}"
+        f" ms, load_orbax {', '.join(f'{x:.1f}' for x in io_ms['load_orbax'])} ms, beside the "
+        f"pth save of the same state {', '.join(f'{x:.1f}' for x in io_ms['pth save'])} ms; "
+        f"save_orbax by 4 ranks (2x2) {ranks[4][0]['save_ms']:.1f} ms, load_orbax by each of 2 "
+        f"ranks {', '.join(f'{r['load_ms']:.1f}' for r in r2)} ms, in one process "
+        f"{one_load_ms:.1f} ms | {card}")
+    return total
+
+
+def tp_driver(tree, root, card):
+    """(c) python -m ffrnet_torch.train's main under FFRNET_DISTRIBUTED=1,
+    RANK=0, WORLD_SIZE=1 (NCCL) with --ckpt_backend orbax: 4 steps, then
+    resumed to 8, against an uninterrupted 8-step run; --mesh_model 2
+    refused. The state the resume builds is held to the bit against the
+    step it loads; the resumed run's step 8 to TP_PARAM_ATOL against the
+    uninterrupted run's: RecNet's reflection padding accumulates its
+    gradient with atomics on the card, so no two runs of a step are
+    bit-equal there (the CPU tests hold the resume to the bit)."""
+    from ffrnet_torch.checkpoint.orbax_io import load_orbax
+    from ffrnet_torch.config import parse_args
+    import ffrnet_torch.train as T
+
+    # lr 1e-4: two runs of a step part through the backward's atomics, and
+    # ChannelFlipMerge.0's ill-conditioned gradient carries that into the
+    # parameters in proportion to lr (8.1e-6 after 8 steps at lr 1e-3 on an
+    # H100 80GB HBM3 at 700 W); the resume's own exactness is the sha256 check
+    extra = ("--optimizer", "sgd", "--lr", "1e-4", "--momentum", "0.9", "--ckpt_backend", "orbax")
+    env = {"FFRNET_DISTRIBUTED": "1", "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1"}
+
+    def run(argv):
+        os.environ.update(env, MASTER_PORT=str(dp_free_port()))
+        try:
+            T.main(argv)
+        finally:
+            for k in env:
+                os.environ.pop(k, None)
+        opts = parse_args(argv, make_dirs=False)
+        return opts, sorted(int(d.split("_")[1]) for d in os.listdir(opts.ckpt_dir)
+                            if d.startswith("orbax_"))
+
+    restored = []
+    real_load = T.load_train_state
+
+    def load_and_check(state, sd, opt, step):
+        from ffrnet_torch.training.trainer import gather_train_state
+
+        out = real_load(state, sd, opt, step)
+        restored.append((tp_digest(gather_train_state(out)), tp_digest((sd, opt)), step))
+        return out
+
+    probe = DriverProbe()
+    T.load_train_state = load_and_check
+    total = {k: 0 for k in KERNELS}
+    try:
+        runs = {}
+        for name, epochs, more in (("first", "1", ()), ("resumed", "2", ("--continue_train", "1")),
+                                   ("whole", "2", ())):
+            probe.reset()
+            sub = "whole" if name == "whole" else "orbax"
+            if name == "resumed":
+                at4 = load_orbax(runs["first"][0].ckpt_dir, 4)
+            opts, kept = run(driver_argv(tree, os.path.join(root, sub), *extra, "--total_epochs",
+                                         epochs, *more))
+            check_driver_counts(f"orbax {name} train_step", probe.steps,
+                                DRIVER_COUNTS["fused", "train_step"])
+            check_driver_counts(f"orbax {name} eval batch", probe.evals,
+                                DRIVER_COUNTS["fused", "eval"])
+            want = [3, 4] if name == "first" else [4, 7, 8]
+            if kept != want or len(probe.steps) != (8 if name == "whole" else 4):
+                raise AssertionError(f"driver orbax {name}: steps kept {kept}, expected {want}; "
+                                     f"{len(probe.steps)} steps")
+            for _, c in probe.steps + probe.evals:
+                for k in total:
+                    total[k] += c[k]
+            runs[name] = (opts, kept)
+        from ffrnet_torch.checkpoint.orbax_io import state_dicts_from_tree
+
+        sd4, opt4, _ = state_dicts_from_tree(at4)
+        if len(restored) != 1 or restored[0][0] != restored[0][1] or restored[0][1] != tp_digest(
+                (sd4, opt4)) or restored[0][2] != 4:
+            raise AssertionError(f"driver orbax: the resumed state is not bit-equal to step 4 "
+                                 f"({restored})")
+        a, b = (load_orbax(runs[n][0].ckpt_dir, 8) for n in ("resumed", "whole"))
+        if a.keys() != b.keys() or (a["epoch"], a["iter"], a["step"]) != (b["epoch"], b["iter"],
+                                                                        b["step"]):
+            raise AssertionError("driver orbax: the resumed run's step 8 holds other entries "
+                                 "than the uninterrupted run's")
+        params = [k for k in b if k.startswith("params/")]
+        err = max(check_close(f"driver orbax resumed {k} vs uninterrupted", a[k], b[k],
+                              TP_PARAM_ATOL, 0.0) for k in params)
+        others = max((a[k].float() - b[k].float()).abs().max().item() for k in b
+                     if torch.is_tensor(b[k]) and k not in params and b[k].is_floating_point())
+        try:
+            run(driver_argv(tree, os.path.join(root, "mm2"), *extra, "--mesh_model", "2"))
+            raise AssertionError("driver --mesh_model 2 at world size 1 did not raise")
+        except ValueError as e:
+            if "--mesh_model 2 exceeds the 1 visible devices" not in str(e):
+                raise
+            refused = str(e)
+    finally:
+        T.load_train_state = real_load
+        probe.close()
+    log("model_axis", f"python -m ffrnet_torch.train --ckpt_backend orbax under "
+        f"FFRNET_DISTRIBUTED=1 RANK=0 WORLD_SIZE=1 (NCCL): 4 steps keep orbax steps "
+        f"{runs['first'][1]}, resumed with --continue_train 1 --total_epochs 2 keep "
+        f"{runs['resumed'][1]}; the resumed state bit-equal to step 4 (sha256); step 8 vs an "
+        f"uninterrupted 8-step run: parameters max_abs_err {err:.3e} (tol {TP_PARAM_ATOL}), "
+        f"running stats and momentum {others:.3e} (reported); launches as phase 9's; "
+        f"--mesh_model 2 raised: {refused}")
+    return total
+
+
+def phase_model_axis(dev, card):
+    """Phase 14 -> the launch counts of its counted runs, summed."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    total = {k: 0 for k in KERNELS}
+    with tempfile.TemporaryDirectory(prefix="ffrnet_tp_") as root:
+        tree = os.path.join(root, "faces")
+        driver_tree(tree)
+        for part in (tp_steps_and_checkpoint(tree, dev, card), tp_driver(tree, root, card)):
+            for k, v in part.items():
+                total[k] += v
+    torch.cuda.empty_cache()
+    log("model_axis", f"all model-axis checks passed in {time.perf_counter() - t0:.1f} s "
+        f"| {card}")
+    return total
+
+
 # ---------------------------------------------------------------------- main
 
 
@@ -2778,6 +3293,8 @@ def main():
     for k, v in phase_export(models, dev, smi).items():
         counts[k] += v
     for k, v in phase_data_parallel(models, dev, smi).items():
+        counts[k] += v
+    for k, v in phase_model_axis(dev, smi).items():
         counts[k] += v
     if counts["int8_conv"] == 0:
         raise AssertionError("int8_conv never launched on the int8 path")

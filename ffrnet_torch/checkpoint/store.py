@@ -18,7 +18,7 @@ lexicographically largest *.pth.gzip name.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 
@@ -40,19 +40,25 @@ def optimizer_state_by_key(model: torch.nn.Module, optimizer: torch.optim.Optimi
             for p, st in optimizer.state.items()}
 
 
-def save_checkpoint(ckpt_dir: str, file_name: str, *, model: torch.nn.Module,
-                    optimizer: Optional[torch.optim.Optimizer] = None, epoch: int = 0,
+def save_checkpoint(ckpt_dir: str, file_name: str, *, model, optimizer=None, epoch: int = 0,
                     iteration: int = 0, extra: Optional[Dict[str, Any]] = None) -> str:
     """Write `{file_name}.pth.gzip` atomically: a pid-tagged dot-file, then
     os.replace, so a crash never leaves a truncated checkpoint under a name
-    that `resolve_latest` would pick. Returns the path."""
+    that `resolve_latest` would pick. Returns the path.
+
+    model: a RecNet, or its state dict; optimizer: its torch optimizer, or
+    the {parameter key: state} dict (both dicts as
+    `training.trainer.gather_train_state` gives them for a class-sharded
+    state)."""
+    sd = model if isinstance(model, Mapping) else model.state_dict()
     payload: Dict[str, Any] = {
-        "RecNet": {k: _cpu(v) for k, v in model.state_dict().items()},
+        "RecNet": {k: _cpu(v) for k, v in sd.items()},
         "epoch": int(epoch),
         "iter": int(iteration),
     }
     if optimizer is not None:
-        payload[OPTIMIZER_KEY] = optimizer_state_by_key(model, optimizer)
+        payload[OPTIMIZER_KEY] = (dict(optimizer) if isinstance(optimizer, Mapping)
+                                  else optimizer_state_by_key(model, optimizer))
     if extra:
         payload.update(extra)
     path = os.path.join(ckpt_dir, file_name + ".pth.gzip")

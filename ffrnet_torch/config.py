@@ -3,9 +3,9 @@
 
 `Options` has every field of the JAX package's, with the same defaults and
 derived paths (save_weight_dir, ckpt_dir, log_dir, opt.txt), plus
-`device` (--device, default cuda), the port's explicit device. Flags whose
-feature the port has not yet ported raise a ValueError that names the
-ROADMAP item that will port it; none is ignored.
+`device` (--device, default cuda), the port's explicit device. Every flag
+is ported; a value the port cannot honour raises a ValueError, and none is
+ignored.
 """
 
 from __future__ import annotations
@@ -80,14 +80,14 @@ class Options:
     batch_size: int = 64
     total_epochs: int = 10
     continue_train: int = 0
-    ckpt_backend: str = "pth"     # pth: the .pth.gzip store; orbax raises
+    ckpt_backend: str = "pth"     # pth: the .pth.gzip store; orbax: DCP step dirs orbax_<step>
     save_freq: int = 2000
     print_freq: int = 10
     eval_freq: int = 100
     report_roc: int = 0           # test phase: also the exact-ROC operating points
     visualize: int = 0            # log the attention panel at each eval (train.py)
-    # parallelism: the data axis is the process group (0: its world size;
-    # else it must equal it); --mesh_model above 1 raises (ROADMAP Queue 1 item 2b)
+    # parallelism: mesh_data x mesh_model is the process group (mesh_data 0:
+    # world size // mesh_model); mesh_model shards the CosFace head's classes
     mesh_data: int = 0
     mesh_model: int = 1
     # test / misc
@@ -106,14 +106,7 @@ class Options:
     config_string: str = ""
 
     def check_ported(self) -> None:
-        """Raise ValueError for a flag value whose feature the port lacks."""
-        if self.mesh_model != 1:
-            raise ValueError(
-                f"--mesh_model {self.mesh_model}: the port shards the data axis only; the "
-                "class-sharded head waits for ROADMAP Queue 1 item 2b")
-        if self.ckpt_backend != "pth":
-            raise ValueError(f"--ckpt_backend {self.ckpt_backend}: the port writes the pth "
-                             "store only; sharded saves wait for ROADMAP Queue 1 item 2b")
+        """Raise ValueError for a flag value the port cannot honour."""
         if self.ss_impl not in _RECNET:
             raise ValueError(f"--ss_impl must be one of {sorted(_RECNET)}, got "
                              f"{self.ss_impl!r}")

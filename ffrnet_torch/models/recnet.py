@@ -11,7 +11,9 @@ names are the reference's state-dict keys (`Conv4Space`, `Conv4Channel`,
   5. width flip of feat_channel, concat, ChannelFlipMerge
   6. Conv4Merge on cat(feat_space, feat_channel_m, featmap) -> feat_new
   7. 7x7 mean -> feat_new_v (N,512)
-  8. with a label: the CosFace head's logits and cosines (`RecNetTrainOut`)
+  8. with a label: the CosFace head's logits and cosines (`RecNetTrainOut`),
+     over the head's class shard under a 'model' mesh axis (the feature
+     enters through copy_to_group over `ops.nn.class_axis_group()`)
 
 The BNs follow `module.training` (batch statistics and running-stat
 updates in train mode, `layers.NormLayer`).
@@ -55,6 +57,7 @@ from ffrnet_torch.models import layers as L
 from ffrnet_torch.ops import nn as ops
 from ffrnet_torch.ops.kernels.channel_branch import _collapse, channel_branch
 from ffrnet_torch.ops.similarity import cosine_sim, self_similarity
+from ffrnet_torch.parallel.collectives import copy_to_group
 
 
 @dataclass(frozen=True)
@@ -106,11 +109,14 @@ class RecNetTrainOut(NamedTuple):
 
 class CosFaceHead(nn.Module):
     """The AddMarginProduct weight (num_classes, C); `add_margin_logits`
-    gives its logits."""
+    gives its logits. Under a 'model' mesh axis (training.trainer.
+    bind_to_mesh) it holds one shard of the zero-padded class axis, rows
+    [class_offset, class_offset + weight.shape[0])."""
 
     def __init__(self, num_classes: int, channels: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(num_classes, channels))
+        self.class_offset = 0
 
 
 _LIN_IDX = (0, 2, 3, 5, 6, 8)
@@ -215,21 +221,26 @@ class RecNet(nn.Module):
         feat_new_v = feat_new.mean(dim=(2, 3))
         if label is None:
             return feat_new_v, feat_new
-        logits, cosine = add_margin_logits(self.classifier.weight, feat_new_v, label,
-                                           s=cfg.s, m=cfg.m, num_classes=cfg.num_classes)
+        # a class-sharded head sums its shards' gradients into the feature's
+        # (the other losses' share stays as it is on every model rank)
+        feat = copy_to_group(feat_new_v, ops.class_axis_group())
+        logits, cosine = add_margin_logits(self.classifier.weight, feat, label, s=cfg.s,
+                                           m=cfg.m, num_classes=cfg.num_classes,
+                                           offset=self.classifier.class_offset)
         return RecNetTrainOut(feat_new_v, logits, cosine, m_space, m_channel,
                               feat_space, feat_channel_m)
 
 
-def _pad_rows_masked(w, num_classes):
-    """(w with each padded row replaced by ones, valid-class mask or None).
-    Normalizing an all-zero padded row would put 0/0 into the backward pass,
-    which a zero cotangent does not cancel; the constant row's cosines are
-    masked, and torch.where gives the padded rows exactly zero gradient."""
+def _pad_rows_masked(w, num_classes, offset=0):
+    """(w with each padded row replaced by ones, valid-class mask or None);
+    w's rows are the classes [offset, offset + w.shape[0]). Normalizing an
+    all-zero padded row would put 0/0 into the backward pass, which a zero
+    cotangent does not cancel; the constant row's cosines are masked, and
+    torch.where gives the padded rows exactly zero gradient."""
     total = w.shape[0]
-    if total <= num_classes:
+    if offset + total <= num_classes:
         return w, None
-    valid = torch.arange(total, device=w.device) < num_classes
+    valid = torch.arange(offset, offset + total, device=w.device) < num_classes
     return torch.where(valid[:, None], w, torch.ones((), dtype=w.dtype, device=w.device)), valid
 
 
@@ -244,34 +255,41 @@ def _mask_padded(logits, cosine, valid):
                                                   device=cosine.device)))
 
 
-def _one_hot(label, like):
-    """One-hot rows shaped and typed like `like`; a scatter, since
-    F.one_hot checks the labels' range on the host (a device sync)."""
-    return torch.zeros_like(like).scatter_(1, label[:, None].long(), 1.0)
+def _one_hot(label, like, offset=0):
+    """One-hot rows shaped and typed like `like`, whose columns are the
+    classes [offset, offset + like.shape[1]); a label outside them gives a
+    zero row. A scatter, since F.one_hot checks the labels' range on the
+    host (a device sync)."""
+    local = label.long() - offset
+    own = (local >= 0) & (local < like.shape[1])
+    idx = local.clamp(0, like.shape[1] - 1)[:, None]
+    return torch.zeros_like(like).scatter_(1, idx, own[:, None].to(like.dtype))
 
 
 def _cosines(w, feat):
     return ops.l2_normalize(feat, axis=1) @ ops.l2_normalize(w, axis=1).T
 
 
-def add_margin_logits(w, feat, label, *, s: float, m: float, num_classes: int):
+def add_margin_logits(w, feat, label, *, s: float, m: float, num_classes: int,
+                      offset: int = 0):
     """CosFace / AddMarginProduct (ffrnet_tpu/models/recnet.py:148-185):
     w (classes, C), feat (N, C), label (N,) -> (logits, cosine), both
     (N, w.shape[0]). The margin is taken off the target class only and
-    the logits are scaled by s. Rows of w past `num_classes` are padding
+    the logits are scaled by s. w may be the class shard [offset, offset +
+    w.shape[0]) of a padded class axis; rows past `num_classes` are padding
     (`_pad_rows_masked`, `_mask_padded`)."""
-    w, valid = _pad_rows_masked(w, num_classes)
+    w, valid = _pad_rows_masked(w, num_classes, offset)
     cosine = _cosines(w, feat)
-    one_hot = _one_hot(label, cosine)
+    one_hot = _one_hot(label, cosine, offset)
     logits = s * (cosine - m * one_hot)
     return _mask_padded(logits, cosine, valid)
 
 
 def arc_margin_logits(w, feat, label, *, s: float = 30.0, m: float = 0.50,
-                      easy_margin: bool = False, num_classes: int = 10575):
+                      easy_margin: bool = False, num_classes: int = 10575, offset: int = 0):
     """ArcFace / ArcMarginProduct (ffrnet_tpu/models/recnet.py:188-220), with
-    the padded-class contract of add_margin_logits."""
-    w, valid = _pad_rows_masked(w, num_classes)
+    the padded and sharded class contract of add_margin_logits."""
+    w, valid = _pad_rows_masked(w, num_classes, offset)
     cosine = _cosines(w, feat)
     sine = torch.sqrt(torch.clamp(1.0 - cosine.square(), 0.0, 1.0))
     phi = cosine * math.cos(m) - sine * math.sin(m)
@@ -280,7 +298,7 @@ def arc_margin_logits(w, feat, label, *, s: float = 30.0, m: float = 0.50,
     else:
         phi = torch.where(cosine > math.cos(math.pi - m), phi,
                           cosine - math.sin(math.pi - m) * m)
-    one_hot = _one_hot(label, cosine)
+    one_hot = _one_hot(label, cosine, offset)
     logits = s * (one_hot * phi + (1.0 - one_hot) * cosine)
     return _mask_padded(logits, cosine, valid)
 

@@ -112,6 +112,27 @@ def stats_group():
     return _STATS_GROUP
 
 
+_CLASS_GROUP = None  # the model group over which the CosFace head's classes are sharded
+
+
+@contextlib.contextmanager
+def class_axis(group):
+    """Inside, a RecNet called with a label feeds its class-sharded head
+    through `parallel.collectives.copy_to_group(feat, group)`, so the
+    feature's gradient sums every class shard's share (None: the head holds
+    every class). It holds through the backward pass run inside it."""
+    global _CLASS_GROUP
+    prev, _CLASS_GROUP = _CLASS_GROUP, group
+    try:
+        yield
+    finally:
+        _CLASS_GROUP = prev
+
+
+def class_axis_group():
+    return _CLASS_GROUP
+
+
 def batch_norm_train(x, scale, bias, running_mean, running_var, *, axis: int = 1,
                      momentum: float = 0.1, eps: float = 1e-5, group=None):
     """Train-mode BatchNorm (ffrnet_tpu/ops/nn.py:114-150) -> (y, new_mean,

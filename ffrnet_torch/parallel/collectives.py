@@ -1,5 +1,5 @@
-"""The collectives of the data axis: what XLA inserted into the JAX
-package's pjit'd programs, written out.
+"""The collectives of the data and model axes: what XLA inserted into the
+JAX package's pjit'd programs, written out.
 
   * `all_reduce_sum` carries gradients: its backward all-reduces the
     upstream gradient (each rank's output feeds every rank's loss), as
@@ -11,6 +11,11 @@ package's pjit'd programs, written out.
   * `broadcast_tensors`: rank 0's values to every rank, in place.
   * `average_tensor`: the mean of a tensor over the group (the step
     metrics, which are per-sample means of equal shards).
+  * `copy_to_group`: the class-sharded head's input, the identity forward
+    and a sum over the model group backward, so the feature's gradient
+    gets every class shard's share (Megatron's "f").
+  * `all_reduce_max`, `all_gather_rows`: the global max of the sharded
+    softmax and argmax, and the class rows gathered for a pth save.
 """
 
 from __future__ import annotations
@@ -89,3 +94,39 @@ def average_tensor(t: torch.Tensor, group) -> torch.Tensor:
     out = t.clone()
     dist.all_reduce(out, group=group)
     return out.div_(dist.get_world_size(group))
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """`x` as it is, its gradient summed over the ranks of `group` (None:
+    `x` itself)."""
+    return x if group is None else _CopyToGroup.apply(x, group)
+
+
+@torch.no_grad()
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of `t` over `group` (a new tensor)."""
+    out = t.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+@torch.no_grad()
+def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
+    """The ranks' `t` (equal shapes) concatenated along dim 0 in group rank
+    order: the model group's class shards as the padded class axis."""
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.detach().contiguous(), group=group)
+    return torch.cat(parts)

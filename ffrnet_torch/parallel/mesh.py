@@ -1,13 +1,17 @@
 """The ('data', 'model') mesh on torch.distributed (ffrnet_tpu/parallel/mesh.py).
 
-One process per card: the data axis is the process group. A training
-batch is sharded over it (each rank's BatchLoader takes its strided share),
-every rank holds the whole RecNet, the gradients are averaged over the
-group before the update and RecNet's train-mode BatchNorms take their
-statistics over the global batch (ops.nn.batch_norm_train). The 'model'
-axis (the class-sharded CosFace head) and sharded checkpoints are not
-ported yet: a mesh with model > 1 is built and validated, but the train
-steps refuse it.
+One process per card; the ranks are laid out as arange(D * M).reshape(D,
+M), so the M ranks of one model group are adjacent. A training batch is
+sharded over 'data' (each rank's BatchLoader takes its strided share; the
+ranks of a model group take the same one), RecNet's train-mode BatchNorms
+take their statistics over the data group (ops.nn.batch_norm_train) and
+the gradients are averaged before the update. The one large weight, the
+CosFace classifier (num_classes x 512), and its optimizer moments are
+sharded over 'model' by class rows (`class_shard`, the JAX package's
+P("model", None)): the class axis is zero-padded to a multiple of M
+(`padded_num_classes`) and the padded rows are masked out of the softmax
+and the argmax (models/recnet.py::add_margin_logits). Everything else is
+replicated.
 
 `maybe_init_distributed` joins the process group of a launcher
 (torchrun's RANK / WORLD_SIZE / LOCAL_RANK / MASTER_ADDR / MASTER_PORT, or
@@ -94,6 +98,31 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1):
     return DeviceMesh(device_type, ranks, mesh_dim_names=AXES)
 
 
+def padded_num_classes(num_classes: int, n_model: int) -> int:
+    """The smallest multiple of n_model >= num_classes
+    (ffrnet_tpu/training/trainer.py:217; 10575 is odd, so every even model
+    axis pads)."""
+    return -(-num_classes // n_model) * n_model
+
+
+def class_shard(num_classes: int, n_model: int, j: int):
+    """-> (offset, rows): model rank j's rows [offset, offset + rows) of the
+    class axis padded to padded_num_classes(num_classes, n_model)."""
+    rows = padded_num_classes(num_classes, n_model) // n_model
+    return j * rows, rows
+
+
+def mesh_coordinate(mesh):
+    """This rank's (data, model) coordinate; (0, 0) outside a process group.
+    A rank outside the mesh (idle) raises."""
+    if isinstance(mesh, LocalMesh):
+        return 0, 0
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError(f"rank {rank()} is idle in {mesh}: it holds no shard")
+    return int(coord[0]), int(coord[1])
+
+
 def validate_batch_for_mesh(mesh, batch_size: int, flag: str = "--batch_size") -> None:
     """Fail fast with an actionable message when the global batch does not
     divide the 'data' mesh axis."""
@@ -106,13 +135,23 @@ def validate_batch_for_mesh(mesh, batch_size: int, flag: str = "--batch_size") -
 
 
 def data_group(mesh):
-    """The process group of this rank's 'data' axis, or None where the axis
-    has one rank (the single-process step runs as it is)."""
+    """The process group of this rank's 'data' axis (the ranks that share its
+    model coordinate), or None where the axis has one rank (the
+    single-process step runs as it is)."""
     if mesh_axes(mesh)["data"] == 1:
         return None
-    if mesh.get_coordinate() is None:
-        raise ValueError(f"rank {rank()} is idle in {mesh}: it holds no shard of the batch")
+    mesh_coordinate(mesh)
     return mesh.get_group("data")
+
+
+def model_group(mesh):
+    """The process group of this rank's 'model' axis (the ranks that share its
+    data coordinate and hold the class shards of one batch), or None where
+    the axis has one rank."""
+    if mesh_axes(mesh)["model"] == 1:
+        return None
+    mesh_coordinate(mesh)
+    return mesh.get_group("model")
 
 
 def group_size(group) -> int:

@@ -22,15 +22,28 @@ written.
 
 Under a launcher (torchrun, or FFRNET_DISTRIBUTED=1 with RANK, WORLD_SIZE,
 LOCAL_RANK, MASTER_ADDR and MASTER_PORT) each rank joins the process group
-(NCCL, gloo with --device cpu) and the mesh's data axis is the world
-(--mesh_data 0, or equal to it): each rank loads its strided share of
-every global batch, the steps average their gradients and share RecNet's
-BN statistics, the queued metrics are averaged over the ranks once per
-fetch, rank 0 alone writes checkpoints and the feature cache (the others
-wait for it), every rank resumes from the same checkpoint, and an LFW eval
-scores a contiguous slice of the pairs per rank and gathers the scores.
-Ranks above 0 log under <log_dir>/<run>/rank<r>. A preemption signal is
-per process: the others then wait in their next collective.
+(NCCL, gloo with --device cpu) and the ('data', 'model') mesh is the world,
+K = D x M ranks (--mesh_model M, --mesh_data 0 or D): each data coordinate
+loads its strided share of every global batch (the M ranks of a model group
+the same share), the steps average their gradients and share RecNet's BN
+statistics over the data axis, --mesh_model M > 1 shards the CosFace
+classifier and its optimizer moments over the model axis (padded to a
+multiple of M, ffrnet_tpu/train.py:385-424), the queued metrics are
+averaged over the ranks once per fetch, rank 0 alone writes the pth
+checkpoints (the classifier gathered over its model group and unpadded
+first) and the feature cache (the others wait for it), every rank resumes
+from the same checkpoint, and an LFW eval scores a contiguous slice of the
+pairs per rank and gathers the scores. Ranks above 0 log under
+<log_dir>/<run>/rank<r>. A preemption signal is per process: the others
+then wait in their next collective.
+
+--ckpt_backend orbax (ffrnet_tpu/train.py:565-596) writes sharded
+torch.distributed.checkpoint directories orbax_<step> (checkpoint/
+orbax_io.py; not readable by the JAX package) in place of the pth files:
+every rank writes its part, a step that hits both cadences saves once,
+and rank 0 then prunes to the save_freq multiples and the newest two.
+--continue_train 1 --which_file latest|<step> resumes from them under any
+mesh.
 """
 
 from __future__ import annotations
@@ -49,6 +62,8 @@ from ffrnet_torch import parallel
 from ffrnet_torch.api import resolve_device
 from ffrnet_torch.checkpoint.pth_io import (encoder_state_dict, load_pth,
                                             recnet_state_dict)
+from ffrnet_torch.checkpoint.orbax_io import (load_orbax, prune_orbax, save_orbax,
+                                              state_dicts_from_tree, train_state_tree)
 from ffrnet_torch.checkpoint.store import (load_checkpoint, optimizer_state,
                                            save_checkpoint)
 from ffrnet_torch.config import Options, parse_args
@@ -60,8 +75,8 @@ from ffrnet_torch.models.irse import build_backbone, check_state_dict
 from ffrnet_torch.models.recnet import build_recnet
 from ffrnet_torch.parallel.collectives import average_tensor
 from ffrnet_torch.training.trainer import (FEATURE_PACK, bind_to_mesh, create_train_state,
-                                           half_dtype, load_train_state, train_step,
-                                           train_step_from_features)
+                                           gather_train_state, half_dtype, load_train_state,
+                                           train_step, train_step_from_features)
 from ffrnet_torch.utils.logger import Logger
 from ffrnet_torch.utils.timer import Timer
 
@@ -315,15 +330,16 @@ def _run_name(opts: Options) -> str:
 
 
 def make_train_mesh(opts: Options):
-    """The ('data', 'model') mesh of a training run, its data axis the
-    world (ffrnet_tpu/train.py:423-424), validated with the JAX package's
-    messages and the global batch checked against it."""
+    """The ('data', 'model') mesh of a training run over the whole world
+    (ffrnet_tpu/train.py:423-424), validated with the JAX package's messages
+    and the global batch checked against its data axis."""
     world = parallel.world_size()
     mesh = parallel.make_mesh(n_data=opts.mesh_data or None, n_model=opts.mesh_model)
-    n_data = parallel.mesh_axes(mesh)["data"]
-    if n_data != world:
-        raise ValueError(f"--mesh_data {opts.mesh_data} uses {n_data} of the {world} ranks: the "
-                         f"data axis is the process group; pass --mesh_data 0 or {world}")
+    axes = parallel.mesh_axes(mesh)
+    if axes["data"] * axes["model"] != world:
+        raise ValueError(f"--mesh_data {opts.mesh_data} x --mesh_model {opts.mesh_model} uses "
+                         f"{axes['data'] * axes['model']} of the {world} ranks: the mesh is the "
+                         "process group")
     parallel.validate_batch_for_mesh(mesh, opts.batch_size)
     return mesh
 
@@ -341,8 +357,14 @@ def _train(opts: Options, guard: PreemptionGuard) -> None:
 
     state = create_train_state(cfg, seed=opts.seed, device=device)
     start_epoch, start_iter = 0, 0
+    orbax = opts.ckpt_backend == "orbax"
     if opts.continue_train:
-        sd, opt, meta = load_checkpoint(opts.ckpt_dir, opts.which_file)
+        if orbax:  # whole tensors on every rank; bind_to_mesh shards them below
+            sd, opt, meta = state_dicts_from_tree(load_orbax(
+                opts.ckpt_dir, None if opts.which_file == "latest" else int(opts.which_file),
+                process_group=parallel.host_group()))
+        else:
+            sd, opt, meta = load_checkpoint(opts.ckpt_dir, opts.which_file)
         opt_sd = {} if opt is None else optimizer_state(opt, cfg.optimizer, state.model,
                                                         meta["iter"])
         load_train_state(state, sd, opt_sd, meta["iter"])
@@ -350,7 +372,11 @@ def _train(opts: Options, guard: PreemptionGuard) -> None:
     elif opts.recnet_weights:
         state.model.load_state_dict(recnet_state_dict(load_pth(opts.recnet_weights),
                                                       cfg.recnet))
-    group = bind_to_mesh(mesh, state)  # the data group (None for one rank)
+    # the data and model groups (None for an axis of one rank); the
+    # classifier is padded and sharded over the model axis
+    group, mgroup = bind_to_mesh(mesh, state)
+    data_index = parallel.mesh_coordinate(mesh)[0]
+    n_data = parallel.mesh_axes(mesh)["data"]
 
     if opts.cache_features:
         # the frozen encoder runs once over every (sample, flip); the steps
@@ -392,7 +418,8 @@ def _train(opts: Options, guard: PreemptionGuard) -> None:
         pack = FEATURE_PACK if opts.pack_upload else None
 
         def step(batch):
-            return train_step_from_features(state, to_nchw(batch), cfg=cfg, group=group)
+            return train_step_from_features(state, to_nchw(batch), cfg=cfg, group=group,
+                                            model_group=mgroup)
     else:
         half = half_dtype(cfg.compute_dtype)
         if opts.int8_encoder:  # the step's frozen forward runs int8; eval keeps `encoder`
@@ -402,18 +429,31 @@ def _train(opts: Options, guard: PreemptionGuard) -> None:
         pack = {"imgs": ("img_non", "img_ocl")} if opts.pack_upload else None
 
         def step(batch):
-            return train_step(step_encoder, state, batch, cfg=cfg, group=group)
+            return train_step(step_encoder, state, batch, cfg=cfg, group=group,
+                              model_group=mgroup)
+
+    last_orbax_step = [-1]
 
     def save_now(name: str, epoch: int, iteration: int) -> None:
-        if rank == 0:  # one writer of the shared pth store; the ranks' states are equal
-            save_checkpoint(opts.ckpt_dir, name, model=state.model,
-                            optimizer=state.optimizer.inner, epoch=epoch, iteration=iteration)
+        if orbax:  # every rank writes its part; one directory per step
+            if iteration != last_orbax_step[0]:  # not when both cadences hit this step
+                save_orbax(opts.ckpt_dir, iteration,
+                           train_state_tree(state, mesh, epoch=epoch, iteration=iteration),
+                           process_group=parallel.host_group())
+                if rank == 0:  # after save_orbax's closing barrier
+                    prune_orbax(opts.ckpt_dir, keep_every=opts.save_freq)
+                last_orbax_step[0] = iteration
+        elif data_index == 0:  # its model group gathers the classifier for rank 0
+            sd, opt = gather_train_state(state, mgroup)
+            if rank == 0:  # one writer of the shared pth store
+                save_checkpoint(opts.ckpt_dir, name, model=sd, optimizer=opt, epoch=epoch,
+                                iteration=iteration)
         timer.update_time("Save")  # the write stays out of the next DataTime
 
     loader = BatchLoader(dataset, opts.batch_size, shuffle=not opts.debug,
                          drop_last=not opts.debug, seed=opts.seed,
                          num_threads=opts.n_thread, device=device, pack=pack,
-                         process_index=rank, process_count=world)
+                         process_index=data_index, process_count=n_data)
 
     logger.record_text("model_config", opts.config_string)
     cur_iters = start_iter
@@ -428,14 +468,15 @@ def _train(opts: Options, guard: PreemptionGuard) -> None:
         TotalLoss: this runs before every checkpoint write, so a poisoned
         step never reaches a checkpoint. Over several ranks the metrics are
         averaged in one collective (each is a mean over an equal shard), at
-        the same iterations on every rank."""
+        the same iterations on every rank (over all of them: the ranks of a
+        model group hold equal metrics, so every rank logs the same values)."""
         if not pending:
             return
         keys = [k for k in pending[0][2] if k != "LR"]
         stacked = torch.stack([torch.stack([m[k].detach().float() for k in keys])
                                for _, _, m in pending])
-        if group is not None:
-            stacked = average_tensor(stacked, group)
+        if world > 1:
+            stacked = average_tensor(stacked, torch.distributed.group.WORLD)
         fetched = stacked.cpu().tolist()
         queued, pending[:] = list(pending), []
         for (it, ep, m), row in zip(queued, fetched):
@@ -498,7 +539,7 @@ def _train(opts: Options, guard: PreemptionGuard) -> None:
                     logger.record_scalar({"acc": acc}, f"test_acc/ocl{ocl}")
                     logger.record_scalar({"acc_new": acc_new}, f"test_acc/ocl{ocl}")
                     print(f"test result ocl{ocl}: acc_new {acc_new:.4f} acc {acc:.4f}")
-                if opts.visualize and world == 1:
+                if opts.visualize and rank == 0:
                     log_attention_visual(opts, encoder, state.model, logger, cur_iters)
                 timer.update_time("Eval")
             if opts.debug:

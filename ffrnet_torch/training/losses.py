@@ -30,12 +30,70 @@ def mse(a, b):
     return torch.mean(torch.square(a.float() - b.float()))
 
 
-def cross_entropy(logits, labels):
-    """Mean softmax cross-entropy over the batch, in fp32."""
+def cross_entropy(logits, labels, *, offset: int = 0, group=None):
+    """Mean softmax cross-entropy over the batch, in fp32. With a model
+    group, `logits` are this rank's class shard, the classes [offset,
+    offset + logits.shape[1]), and the softmax runs over the shards of every
+    rank of `group` (`_ShardedCrossEntropy`)."""
     logits = logits.float()
+    if group is not None:
+        return torch.mean(_ShardedCrossEntropy.apply(logits, labels.long(), offset, group))
     logz = torch.logsumexp(logits, dim=-1)
     true_logit = torch.gather(logits, 1, labels[:, None].long())[:, 0]
     return torch.mean(logz - true_logit)
+
+
+def _own(labels, offset, rows):
+    """(column of each label in the shard [offset, offset + rows), clamped;
+    whether the shard holds it)."""
+    local = labels - offset
+    own = (local >= 0) & (local < rows)
+    return local.clamp(0, rows - 1)[:, None], own
+
+
+class _ShardedCrossEntropy(torch.autograd.Function):
+    """Per-sample cross-entropy over class-sharded logits (N, R): the global
+    max by one all-reduce, then sum(exp(x - max)) and the target logit (its
+    owner's; 0 elsewhere) summed in a second. The backward is local:
+    softmax_local - onehot_local."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, offset, group):
+        from ffrnet_torch.parallel.collectives import all_reduce_max
+
+        gmax = all_reduce_max(logits.amax(dim=1), group)
+        e = torch.exp(logits - gmax[:, None])
+        idx, own = _own(labels, offset, logits.shape[1])
+        target = torch.where(own, logits.gather(1, idx)[:, 0], torch.zeros_like(gmax))
+        sums = torch.stack([e.sum(dim=1), target])
+        torch.distributed.all_reduce(sums, group=group)
+        ctx.save_for_backward(e / sums[0][:, None], idx, own)
+        return torch.log(sums[0]) + gmax - sums[1]
+
+    @staticmethod
+    def backward(ctx, grad):
+        p, idx, own = ctx.saved_tensors
+        g = p.scatter_add(1, idx, -own[:, None].to(p.dtype))
+        return g * grad[:, None], None, None, None
+
+
+@torch.no_grad()
+def argmax_classes(x, *, offset: int = 0, group=None):
+    """argmax over the class axis of x (N, R), the first index of a tie as in
+    torch.argmax and jnp.argmax; with a model group, over every rank's shard
+    (x holds the classes [offset, offset + R)): each shard's max and first
+    index, then the global max by one all-reduce and the lowest global index
+    that reaches it by another."""
+    idx = x.argmax(dim=1)
+    if group is None:
+        return idx
+    from ffrnet_torch.parallel.collectives import all_reduce_max
+
+    best = x.gather(1, idx[:, None])[:, 0]
+    top = all_reduce_max(best, group)
+    cand = torch.where(best == top, idx + offset, torch.full_like(idx, torch.iinfo(idx.dtype).max))
+    torch.distributed.all_reduce(cand, op=torch.distributed.ReduceOp.MIN, group=group)
+    return cand
 
 
 def gram_mse_factored(a, b, *, eps: float = 1e-12):
@@ -91,7 +149,8 @@ def _rows(x):
 def ffrnet_objective(*, featmap_non, embed_non, embed_ocl, out_non, out_ocl, labels,
                      loss_weight: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
                      faithful_ce_weight: bool = True, ss_impl: str = "plain",
-                     ss_loss_impl: str = "factored") -> LossBreakdown:
+                     ss_loss_impl: str = "factored", class_offset: int = 0,
+                     class_group=None) -> LossBreakdown:
     """The weighted objective from the two branches' RecNetTrainOut.
 
     featmap_non: (N, C, H, W) frozen clean map; embed_*: (N, C) frozen
@@ -99,7 +158,10 @@ def ffrnet_objective(*, featmap_non, embed_non, embed_ocl, out_non, out_ocl, lab
     Grams' MSEs by `gram_mse_factored`; 'materialized' builds the Grams (the
     reference's dataflow), and so does ss_impl='kernel' always, whose kernel
     makes them anyway. The spatial Grams (N, HW, HW) are small and built in
-    both modes.
+    both modes. class_offset, class_group: the outputs' logits and cosines
+    are the class shard [class_offset, ...) of a head sharded over the
+    model group `class_group`; the cross-entropy and the accuracy's argmax
+    then run over every shard.
     """
     w3 = float(loss_weight[3])
     factored = ss_loss_impl == "factored" and ss_impl != "kernel"
@@ -122,12 +184,13 @@ def ffrnet_objective(*, featmap_non, embed_non, embed_ocl, out_non, out_ocl, lab
 
     item1, pos_d, neg_d = triplet_cosine(out_ocl.feat_new_v, embed_non, embed_ocl)
     item2 = (mse(out_non.feat_new_v, embed_non) + mse(out_ocl.feat_new_v, embed_non)) / 2
-    ce_non = cross_entropy(out_non.logits, labels)
-    ce_ocl = cross_entropy(out_ocl.logits, labels)
+    shard = dict(offset=class_offset, group=class_group)
+    ce_non = cross_entropy(out_non.logits, labels, **shard)
+    ce_ocl = cross_entropy(out_ocl.logits, labels, **shard)
     item3 = ce_non / (1e-8 + w3) + ce_ocl if faithful_ce_weight else ce_non + ce_ocl
 
     items = [item * float(wt) for item, wt in zip((item0, item1, item2, item3), loss_weight)]
     total = items[0] + items[1] + items[2] + items[3]
     # masked-branch train accuracy from the raw cosines
-    accuracy = (out_ocl.cosine.argmax(dim=1) == labels).float().mean()
+    accuracy = (argmax_classes(out_ocl.cosine, **shard) == labels).float().mean()
     return LossBreakdown(total, items[0], items[1], items[2], items[3], pos_d, neg_d, accuracy)

@@ -31,7 +31,21 @@ global batch; RecNet's train-mode BNs take the global batch's statistics
 group between the backward pass and the clip, as the JAX package clips
 the global gradient. The returned metrics are the rank's own (means over
 its shard); `parallel.collectives.average_tensor` gives the global ones.
-The class axis ('model' > 1) waits for ROADMAP Queue 1 item 2b.
+
+The class axis (a 'model' mesh axis of M > 1; `model_group=` of the
+steps): `bind_to_mesh` zero-pads the CosFace classifier and its optimizer
+moments to padded_num_classes(num_classes, M) rows and keeps this rank's
+shard (ffrnet_tpu/training/trainer.py:217-298). The head's input goes
+through copy_to_group (models/recnet.py), so only the head's share of the
+feature's gradient is summed over the model group; the softmax
+cross-entropy and the accuracy's argmax run over every shard
+(training/losses.py). The ranks of a model group hold the same batch
+shard. The classifier shard's gradient is averaged over the data group
+(the ranks that hold the same rows), the replicated parameters' over every
+rank of the mesh: they are equal across the model axis to rounding, and
+the mean keeps them bit-identical where the card's backward is not
+deterministic. `gather_train_state` gathers and unpads the state for the
+pth store.
 """
 
 from __future__ import annotations
@@ -47,8 +61,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ffrnet_torch.models import layers as L
 from ffrnet_torch.models.recnet import RecNet, RecNetConfig, build_recnet
-from ffrnet_torch.ops.nn import batch_stats_group, images_to_unit_range, tree_cast_floats
-from ffrnet_torch.parallel import collectives, data_group, group_size, mesh_axes
+from ffrnet_torch.ops.nn import (batch_stats_group, class_axis, images_to_unit_range,
+                                 tree_cast_floats)
+from ffrnet_torch.parallel import (class_shard, collectives, data_group, group_size, mesh_axes,
+                                   mesh_coordinate, model_group, padded_num_classes)
 from ffrnet_torch.training import losses, optimizers, schedules
 
 
@@ -188,14 +204,19 @@ def _unpack(feats):
     return feats["featmap_non"], feats["featmap_ocl"], feats["embed_non"], feats["embed_ocl"]
 
 
-def train_step_from_features(state: TrainState, feats, *, cfg: TrainerConfig, group=None):
+def train_step_from_features(state: TrainState, feats, *, cfg: TrainerConfig, group=None,
+                             model_group=None):
     """One update of RecNet from frozen-encoder features (fresh from
     `encode_frozen`, or cached; host arrays are moved to the state's
     device). Returns (state, metrics), the metrics 0-d tensors on the
     device except LR (a float). group: the data group when `feats` is
-    this rank's shard of a global batch."""
+    this rank's shard of a global batch. model_group: the model group over
+    which the state's classifier is sharded (`bind_to_mesh`); its ranks
+    take the same `feats`, and the mesh spans the default group."""
     if group_size(group) == 1:
         group = None
+    if group_size(model_group) == 1:
+        model_group = None
     model = state.model
     dev = state.device
     half = half_dtype(cfg.compute_dtype)
@@ -217,17 +238,26 @@ def train_step_from_features(state: TrainState, feats, *, cfg: TrainerConfig, gr
     else:
         run = branch
 
-    with batch_stats_group(group):  # the recompute of --remat runs inside, too
+    # the recompute of --remat runs inside both, too
+    with batch_stats_group(group), class_axis(model_group):
         out_non = run(featmap_non)
         out_ocl = run(featmap_ocl)
         lb = losses.ffrnet_objective(
             featmap_non=featmap_non, embed_non=embed_non, embed_ocl=embed_ocl,
             out_non=out_non, out_ocl=out_ocl, labels=labels, loss_weight=cfg.loss_weight,
             faithful_ce_weight=cfg.faithful_ce_weight, ss_impl=cfg.recnet.ss_impl,
-            ss_loss_impl=cfg.ss_loss_impl)
+            ss_loss_impl=cfg.ss_loss_impl, class_offset=model.classifier.class_offset,
+            class_group=model_group)
         state.optimizer.zero_grad()
         lb.total.backward()
-    if group is not None:  # the global gradient, then the clip
+    # the global gradient, then the clip
+    if model_group is not None:
+        cls = model.classifier.weight
+        collectives.average_gradients([p for p in state.optimizer.params if p is not cls],
+                                      torch.distributed.group.WORLD)
+        if group is not None:
+            collectives.average_gradients([cls], group)
+    elif group is not None:
         collectives.average_gradients(state.optimizer.params, group)
     lr = state.optimizer.step(state.step)
     state.step += 1
@@ -245,32 +275,117 @@ def train_step_from_features(state: TrainState, feats, *, cfg: TrainerConfig, gr
     return state, metrics
 
 
-def train_step(encoder, state: TrainState, batch, *, cfg: TrainerConfig, group=None):
+def train_step(encoder, state: TrainState, batch, *, cfg: TrainerConfig, group=None,
+               model_group=None):
     """One update from a paired image batch: encode_frozen, then
     train_step_from_features. The encoder is a Backbone on the state's
     device, in the compute type (`encoder.to(torch.bfloat16)` for bf16).
-    group: the data group when `batch` is this rank's shard."""
+    group: the data group when `batch` is this rank's shard; model_group:
+    as in train_step_from_features."""
     want = half_dtype(cfg.compute_dtype) or torch.float32
     have = encoder.input_layer[0].weight.dtype
     if have != want:
         raise ValueError(f"train_step: the encoder is {have}, compute_dtype "
                          f"{cfg.compute_dtype!r} needs {want}")
-    return train_step_from_features(state, encode_frozen(encoder, batch), cfg=cfg, group=group)
+    return train_step_from_features(state, encode_frozen(encoder, batch), cfg=cfg, group=group,
+                                    model_group=model_group)
+
+
+def classifier_moments(state: TrainState) -> Dict[str, torch.Tensor]:
+    """The classifier's optimizer entries that mirror its rows (momentum,
+    moments; not Adam's 0-d step). The torch optimizer keys its state by
+    parameter, so no other parameter's entries can match (the JAX package
+    matches by tree path and shape, ffrnet_tpu/training/trainer.py:227-235)."""
+    p = state.model.classifier.weight
+    return {k: v for k, v in state.optimizer.inner.state.get(p, {}).items()
+            if isinstance(v, torch.Tensor) and v.shape == p.shape}
+
+
+def _map_classifier_rows(state: TrainState, fn) -> None:
+    """Replace the classifier weight by fn(weight), and each of its
+    classifier_moments by fn(entry)."""
+    p = state.model.classifier.weight
+    with torch.no_grad():
+        for k, v in classifier_moments(state).items():
+            state.optimizer.inner.state[p][k] = fn(v)
+        p.data = fn(p.data)
+
+
+def pad_train_state_classes(state: TrainState, rows: int) -> TrainState:
+    """Zero-pad the classifier's class axis, and the optimizer state that
+    mirrors it, to `rows` (in place; ffrnet_tpu/training/trainer.py:244-262).
+    The padded rows are inert: add_margin_logits masks them out of the
+    softmax, so their gradient is exactly zero and they stay zero. No-op
+    when the classifier already has `rows` rows."""
+    have = state.model.classifier.weight.shape[0]
+    if have > rows:
+        raise ValueError(f"classifier has {have} rows > target {rows}")
+    if have < rows:
+        _map_classifier_rows(
+            state, lambda x: torch.cat([x, x.new_zeros((rows - have,) + x.shape[1:])]))
+    return state
+
+
+def unpad_train_state_classes(state: TrainState, num_classes: int) -> TrainState:
+    """Inverse of pad_train_state_classes: the classifier and its optimizer
+    state sliced back to `num_classes` rows (in place)."""
+    if state.model.classifier.weight.shape[0] != num_classes:
+        _map_classifier_rows(state, lambda x: x[:num_classes].clone())
+    return state
 
 
 def bind_to_mesh(mesh, state: TrainState):
-    """-> the data group of `mesh` for `state`'s steps (None for one rank),
-    with rank 0's RecNet parameters and buffers broadcast to every rank.
-    The classifier is not padded: the 'model' axis is 1 (padded_num_classes
-    of any class count over 1 is the count itself)."""
-    if mesh_axes(mesh)["model"] != 1:
-        raise NotImplementedError(
-            f"mesh {mesh_axes(mesh)}: the class-sharded head ('model' > 1) waits for "
-            "ROADMAP Queue 1 item 2b")
-    group = data_group(mesh)
-    if group is not None:
+    """-> (data group, model group) of `mesh` for `state`'s steps (None for
+    an axis of one rank). Rank 0's RecNet parameters and buffers are
+    broadcast to every rank of the mesh. Under a 'model' axis of M > 1 the
+    classifier and its optimizer state are then padded to
+    padded_num_classes(num_classes, M) rows and cut to this rank's shard
+    `class_shard(num_classes, M, j)` (the counterpart of the JAX package's
+    placement with P("model", None)); the mesh must span the default group."""
+    n_model = mesh_axes(mesh)["model"]
+    group, mgroup = data_group(mesh), model_group(mesh)
+    if mgroup is not None:
+        n_mesh, num = mesh_axes(mesh)["data"] * n_model, state.model.cfg.num_classes
+        if n_mesh != torch.distributed.get_world_size():
+            raise ValueError(f"a 'model' axis needs a mesh over every rank: {n_mesh} of "
+                             f"{torch.distributed.get_world_size()}")
+        if state.model.classifier.weight.shape[0] != num:
+            raise ValueError(f"bind_to_mesh: the classifier has "
+                             f"{state.model.classifier.weight.shape[0]} rows, not the "
+                             f"{num} classes (bound already?)")
+        collectives.broadcast_tensors(state.model.state_dict().values(),
+                                      torch.distributed.group.WORLD)
+        pad_train_state_classes(state, padded_num_classes(num, n_model))
+        off, rows = class_shard(num, n_model, mesh_coordinate(mesh)[1])
+        _map_classifier_rows(state, lambda x: x[off:off + rows].clone())
+        state.model.classifier.class_offset = off
+    elif group is not None:
         collectives.broadcast_tensors(state.model.state_dict().values(), group)
-    return group
+    return group, mgroup
+
+
+@torch.no_grad()
+def gather_train_state(state: TrainState, model_group=None):
+    """-> (RecNet state dict, {parameter key: optimizer state}) on the CPU
+    with the whole classifier: gathered over `model_group` (every rank of it
+    takes part) and unpadded to num_classes, as the pth store keeps it
+    (ffrnet_tpu/train.py:580-582)."""
+    from ffrnet_torch.checkpoint.store import optimizer_state_by_key
+
+    num = state.model.cfg.num_classes
+    p = state.model.classifier.weight
+
+    def whole(x):
+        if model_group is not None:
+            x = collectives.all_gather_rows(x, model_group)
+        return x[:num].cpu().clone()
+
+    sd = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    sd["classifier.weight"] = whole(p)
+    opt = optimizer_state_by_key(state.model, state.optimizer.inner)
+    for k, v in classifier_moments(state).items():
+        opt["classifier.weight"][k] = whole(v)
+    return sd, opt
 
 
 def _check_layout(batch, keys, packed):
@@ -284,14 +399,16 @@ def make_distributed_step(mesh, cfg: TrainerConfig, encoder, state: TrainState,
     """Bind train_step to a mesh (ffrnet_tpu/training/trainer.py:301-343).
 
     Returns (step, (encoder, state)); call step(encoder, state, batch) on
-    every rank with its shard of the global batch ('imgs' and 'label' if
-    packed, else 'img_non', 'img_ocl', 'label'). The metrics are the rank's
-    own."""
-    group = bind_to_mesh(mesh, state)
+    every rank with its data coordinate's shard of the global batch ('imgs'
+    and 'label' if packed, else 'img_non', 'img_ocl', 'label'; the ranks of
+    a model group take the same shard). Under a 'model' axis the state's
+    classifier is padded and sharded (bind_to_mesh); slice checkpoints back
+    with gather_train_state. The metrics are the rank's own."""
+    group, mgroup = bind_to_mesh(mesh, state)
 
     def step(encoder, state, batch):
         _check_layout(batch, ("imgs",), packed)
-        return train_step(encoder, state, batch, cfg=cfg, group=group)
+        return train_step(encoder, state, batch, cfg=cfg, group=group, model_group=mgroup)
 
     return step, (encoder, state)
 
@@ -308,12 +425,13 @@ def make_distributed_feature_step(mesh, cfg: TrainerConfig, state: TrainState,
                                   packed: bool = False):
     """Bind train_step_from_features to a mesh (feature-cached training;
     ffrnet_tpu/training/trainer.py:360-392). Returns (step, state); call
-    step(state, feats) on every rank with its shard (PACKED_FEATURE_KEYS
-    if packed, else FEATURE_KEYS)."""
-    group = bind_to_mesh(mesh, state)
+    step(state, feats) on every rank with its data coordinate's shard
+    (PACKED_FEATURE_KEYS if packed, else FEATURE_KEYS). The class axis as
+    in make_distributed_step."""
+    group, mgroup = bind_to_mesh(mesh, state)
 
     def step(state, feats):
         _check_layout(feats, PACKED_FEATURE_KEYS, packed)
-        return train_step_from_features(state, feats, cfg=cfg, group=group)
+        return train_step_from_features(state, feats, cfg=cfg, group=group, model_group=mgroup)
 
     return step, state

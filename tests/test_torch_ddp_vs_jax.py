@@ -22,9 +22,6 @@ makes both ranks raise the count diagnostic after the gather.
 
 import functools
 import os
-import socket
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -40,33 +37,12 @@ from ffrnet_tpu.models import irse
 from ffrnet_tpu.models.recnet import RecNetConfig as JRecNetConfig
 from ffrnet_tpu.parallel.mesh import batch_sharding, make_mesh
 from ffrnet_tpu.training import trainer as j_trainer
+from torch_distributed_worker import join_ranks, start_ranks
 
-WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_distributed_worker.py")
 NUM_CLASSES, GLOBAL_BATCH, STEPS = 32, 4, 2
 OPTIMIZER = dict(optimizer="sgd", lr=1e-3, momentum=0.9)
 PARAM_ATOL = 1e-5
 STAT_TOL = dict(atol=1e-5, rtol=1e-5)
-TIMEOUT = 600
-
-
-def free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def start_ranks(mode, out, world=2):
-    port = free_port()
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    return [subprocess.Popen([sys.executable, WORKER, mode, str(r), str(world), str(port), out],
-                             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-            for r in range(world)]
-
-
-def join_ranks(procs):
-    for p in procs:
-        log, _ = p.communicate(timeout=TIMEOUT)
-        assert p.returncode == 0, log.decode(errors="replace")[-4000:]
 
 
 def image_batches(seed=0):

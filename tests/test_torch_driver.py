@@ -71,12 +71,20 @@ def test_flag_surface_matches_jax(argv, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--mesh_data", "2"], "needs 2 devices but only 1"), (["--mesh_model", "2"], "item 2b"),
-    (["--ckpt_backend", "orbax"], "item 2b"), (["--ss_impl", "triton"], "ss_impl")])
+    (["--mesh_data", "2"], "needs 2 devices but only 1"),
+    (["--mesh_model", "2"], "exceeds the 1 visible devices"),
+    (["--ckpt_backend", "orbax"], None), (["--ss_impl", "triton"], "ss_impl")])
 def test_unported_flags_raise(argv, item):
-    """The class axis and sharded saves raise at parsing, naming their
-    ROADMAP item; --mesh_data parses, and a data axis larger than the
-    world (one process here) raises make_mesh's message."""
+    """--mesh_data and --mesh_model parse, and a mesh axis larger than the
+    world (one process here) raises make_mesh's message, the JAX package's;
+    --ckpt_backend orbax parses and builds the one-process mesh; an
+    unknown --ss_impl raises at parsing."""
+    if item is None:
+        opts = parse_args(argv, make_dirs=False)
+        assert opts.ckpt_backend == "orbax"
+        assert train_mod.parallel.mesh_axes(train_mod.make_train_mesh(opts)) == {
+            "data": 1, "model": 1}
+        return
     with pytest.raises(ValueError, match=item):
         opts = parse_args(argv, make_dirs=False)
         train_mod.make_train_mesh(opts)
