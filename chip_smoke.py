@@ -1,4 +1,6 @@
-"""Drive the PyTorch/H100 port's inference, ingest, training, serving, export, data-parallel and model-axis paths on one NVIDIA GPU.
+"""Drive the PyTorch/H100 port's inference, ingest, training, serving,
+export, data-parallel and model-axis paths, and its model-zoo extras and
+float tools, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -118,6 +120,17 @@ exits non-zero without a result line:
               (kept steps, the resumed state bit-equal to the step it loads,
               step 8 within 2e-5 of an uninterrupted run) and --mesh_model 2
               refused; step, save_orbax and load_orbax ms
+ 15. extras   SELayer (x + the se_gating kernel) at IR-SE50's four SE shapes
+              and the reference's SELayer(64, 16) on 7x7, N=64, fp32 and bf16,
+              against x + se_gating_plain, one launch per call; HGBlock at
+              depth 2 on (256, 512, 7, 7) (the nearest-exact resize) and
+              depth 4 on (64, 64, 56, 56), MobileFaceNet(512) at N=256 (fp32
+              and bf16, faces/s) and the Arcface and AmSoftmax heads at 51332
+              classes, each card against CPU; examples/train_synthetic (20
+              bf16 steps), tools/bench_eval at its defaults (6,000 pairs,
+              bf16) and with --sync_per_batch, and tools/bench_driver at its
+              defaults and with --upload_only 1, their launches checked
+              exactly, pairs/s and imgs/s logged
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit as nvidia-smi gives them, and the result line
@@ -3261,6 +3274,279 @@ def phase_model_axis(dev, card):
     return total
 
 
+# ----------------------------------------------------------------- phase 15
+
+# IR-SE50's SE shapes (C, H) and the reference's SELayer(64, 16) on a 7x7 map
+EXTRAS_SE_SHAPES = ((64, 56), (128, 28), (256, 14), (512, 7), (64, 7))
+# (depth, input shape, c_out) of the HGBlock checks: RecNet's map (7 -> 4 ->
+# 2 -> 4 -> 8, resized to 7) and a 56x56 map four levels deep (7 -> 4 -> 8,
+# resized to 7, at level 1)
+EXTRAS_HG = ((2, (256, 512, 7, 7), 512), (4, (64, 64, 56, 56), 64))
+EXTRAS_N = 256
+EXTRAS_CLASSES = 51332  # the reference's Arcface / Am_softmax default
+EXTRAS_MIN_COS = 0.999
+EXTRAS_STEPS = 20
+
+
+def extras_counts_are(what, counts, **want):
+    expected = {k: want.get(k, 0) for k in KERNELS}
+    if counts != expected:
+        raise AssertionError(f"{what}: launches {counts}, expected {expected}")
+
+
+def random_bn_stats(model, g):
+    """Running means ~ N(0, 0.3), variances ~ U(0.5, 1.5), as
+    tests/test_parity_extras.py:19-22 sets the reference's."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (torch.nn.BatchNorm1d, torch.nn.BatchNorm2d)):
+                m.running_mean.copy_(0.3 * torch.randn(m.running_mean.shape, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(m.running_var.shape, generator=g))
+
+
+def extras_se_layer(dev, g):
+    """SELayer (x + se_gating(x, fc.0, fc.2)) on the card against x +
+    se_gating_plain at se_gating's tolerances, one launch per call."""
+    from ffrnet_torch.models.hourglass import SELayer, init_se_layer
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ffrnet_torch.ops.kernels.se_gating import _se_plan, se_gating_plain
+
+    for dname, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        tol = TOL.get((dname, "se_gating"), BF16_TOL)
+        for c, h in EXTRAS_SE_SHAPES:
+            layer = SELayer(c, reduction=16)
+            init_se_layer(layer, g)
+            layer = layer.to(dev, dt)
+            x = torch.randn(64, c, h, h, generator=g).to(dev, dt)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            with torch.no_grad():
+                y = layer(x)
+            torch.cuda.synchronize()
+            extras_counts_are(f"SELayer({c}, 16) {dname}", launch_counts(), se_gating=1)
+            with torch.no_grad():
+                want = x + se_gating_plain(x, layer.fc[0].weight, layer.fc[2].weight)
+            e = check_close(f"SELayer({c}, 16) {dname} {tuple(x.shape)}", y, want, *tol)
+            log("extras", f"SELayer({c}, 16) {dname} x{tuple(x.shape)}: one se_gating launch, "
+                f"plan {_se_plan(c, h * h, c // 16, dt.itemsize)}, max_abs_err {e:.3e} against "
+                f"x + se_gating_plain (atol {tol[0]}, rtol {tol[1]})")
+
+
+def extras_hgblock(dev, g):
+    """HGBlock in eval mode (random BN statistics), fp32 with TF32 off: the
+    card against the CPU within PATH_TOL."""
+    from ffrnet_torch.models.hourglass import HGBlock, init_hgblock
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    for depth, shape, c_out in EXTRAS_HG:
+        block = HGBlock(depth, shape[1], c_out, c_mid=64)
+        init_hgblock(block, g)
+        random_bn_stats(block, g)
+        block.eval()
+        x = torch.randn(shape, generator=g)
+        with torch.no_grad():
+            want = block(x)
+            block.to(dev)
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            got = block(x.to(dev))
+            torch.cuda.synchronize()
+        extras_counts_are(f"HGBlock depth {depth}", launch_counts())
+        e = check_close(f"HGBlock depth {depth} {shape}", got.cpu(), want, *PATH_TOL)
+        log("extras", f"HGBlock(depth={depth}, c_in={shape[1]}, c_out={c_out}, c_mid=64) "
+            f"x{shape} -> {tuple(got.shape)}: card vs CPU max_abs_err {e:.3e} (atol "
+            f"{PATH_TOL[0]}, rtol {PATH_TOL[1]}; the nearest-exact resize taken)")
+
+
+def extras_mobilefacenet(dev, g, card):
+    """MobileFaceNet(512) at N=256 (random BN statistics) on the card
+    against the CPU: fp32 within PATH_TOL, bf16 by cosine; faces/s, the
+    median of 10 forwards timed with CUDA events."""
+    import copy
+
+    from ffrnet_torch.models.mobilefacenet import build_mobilefacenet
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    cpu = build_mobilefacenet(512, generator=g)
+    random_bn_stats(cpu, g)
+    faces = torch.rand(EXTRAS_N, 3, 112, 112, generator=g) * 2 - 1
+    for dname, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        ref = copy.deepcopy(cpu).to(dtype=dt)
+        model = copy.deepcopy(cpu).to(dev, dt)
+        x = faces.to(dev, dt)
+        with torch.no_grad():
+            want = ref(faces.to(dt))
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            got = model(x)
+            torch.cuda.synchronize()
+            extras_counts_are(f"MobileFaceNet {dname}", launch_counts())
+            if dname == "fp32":
+                e = check_close(f"MobileFaceNet fp32 N={EXTRAS_N}", got.cpu(), want, *PATH_TOL)
+                agree = f"max_abs_err {e:.3e} (atol {PATH_TOL[0]}, rtol {PATH_TOL[1]})"
+            else:
+                cos = min_cos(got, want)
+                if not (torch.isfinite(got).all() and cos >= EXTRAS_MIN_COS):
+                    raise AssertionError(f"MobileFaceNet bf16: min cosine {cos:.6f} below "
+                                         f"{EXTRAS_MIN_COS}")
+                agree = f"min cosine {cos:.6f} (>= {EXTRAS_MIN_COS})"
+            ms = []
+            for _ in range(12):
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                model(x)
+                end.record()
+                end.synchronize()
+                ms.append(start.elapsed_time(end))
+        med = float(np.median(ms[2:]))
+        log("extras", f"MobileFaceNet(512) {dname} N={EXTRAS_N}: card vs CPU {agree}; "
+            f"{EXTRAS_N / med * 1e3:.1f} faces/s (median {med:.4f} ms of 10 forwards after 2, "
+            f"min {min(ms[2:]):.4f}, max {max(ms[2:]):.4f}; CUDA events) | {card}")
+
+
+def extras_heads(dev, g):
+    """Arcface and AmSoftmax at 51332 classes, N=256, fp32 with TF32 off:
+    the card against the CPU within PATH_TOL; a quarter of the rows point
+    away from their class, so Arcface's [0, pi] guard runs."""
+    import copy
+
+    from ffrnet_torch.models.heads import AmSoftmax, Arcface
+
+    label = torch.randint(0, EXTRAS_CLASSES, (EXTRAS_N,), generator=g)
+    for cls in (Arcface, AmSoftmax):
+        head = cls(512, EXTRAS_CLASSES, generator=g)
+        emb = torch.randn(EXTRAS_N, 512, generator=g)
+        with torch.no_grad():
+            k = EXTRAS_N // 4
+            emb[:k] = -head.kernel[:, label[:k]].T + 0.05 * torch.randn(k, 512, generator=g)
+            emb = emb / emb.norm(dim=1, keepdim=True)
+            want = head(emb, label)
+            card = copy.deepcopy(head).to(dev)
+            got = card(emb.to(dev), label.to(dev))
+            torch.cuda.synchronize()
+        e = check_close(f"{cls.__name__} N={EXTRAS_N} classes {EXTRAS_CLASSES}", got.cpu(),
+                        want, *PATH_TOL)
+        log("extras", f"{cls.__name__}(512, {EXTRAS_CLASSES}) s={head.s} m={head.m} "
+            f"N={EXTRAS_N} ({k} rows past the guard): logits {tuple(got.shape)}, card vs CPU "
+            f"max_abs_err {e:.3e} (atol {PATH_TOL[0]}, rtol {PATH_TOL[1]})")
+
+
+def run_captured(fn, argv):
+    """fn(argv) with its standard output captured -> (its return value,
+    its printed lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ret = fn(argv)
+    return ret, buf.getvalue().strip().splitlines()
+
+
+def extras_train_synthetic(card):
+    """examples/train_synthetic's main, 20 bf16 steps on the card: finite
+    losses, 24 se_gating per step. -> its launch counts."""
+    from ffrnet_torch.examples import train_synthetic
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    _, lines = run_captured(train_synthetic.main, [str(EXTRAS_STEPS)])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    extras_counts_are(f"train_synthetic {EXTRAS_STEPS} steps", counts,
+                      se_gating=24 * EXTRAS_STEPS)
+    losses = [float(line.split("total=")[1].split()[0]) for line in lines]
+    printed = [i for i in range(EXTRAS_STEPS) if i % 5 == 0 or i == EXTRAS_STEPS - 1]
+    if len(losses) != len(printed) or not np.isfinite(losses).all():
+        raise AssertionError(f"train_synthetic: printed {lines}")
+    for line in lines:
+        log("extras", f"train_synthetic | {line}")
+    log("extras", f"train_synthetic: {EXTRAS_STEPS} bf16 steps (batch 16, 32 identities, Adam "
+        f"lr 1e-3) in {time.perf_counter() - t0:.1f} s with the build; TotalLoss "
+        f"{losses[0]:.4f} at step 0 -> {losses[-1]:.4f} at step {EXTRAS_STEPS - 1}; "
+        f"launches {counts} | {card}")
+    return counts
+
+
+def extras_bench_eval(card):
+    """tools/bench_eval at its defaults (6,000 pairs, batch 250, bf16, 3
+    repeats after the first pass), then with --sync_per_batch: each pass
+    launches se_gating 24 times and channel_branch once per batch. -> the
+    launch counts of both runs."""
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ffrnet_torch.tools import bench_eval
+
+    total = {k: 0 for k in KERNELS}
+    for extra in ([], ["--sync_per_batch"]):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out, _ = run_captured(bench_eval.main, extra)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        forwards = -(-out["pairs"] // out["batch"]) * (1 + len(out["all_times"]))
+        extras_counts_are(f"bench_eval {extra}", counts, se_gating=24 * forwards,
+                          channel_branch=forwards)
+        for k, v in counts.items():
+            total[k] += v
+        log("extras", f"bench_eval {' '.join(extra) or '(defaults)'}: {out['pairs']} pairs, "
+            f"batch {out['batch']}, {out['dtype']}: {out['pairs_per_sec']} pairs/s (best pass "
+            f"{out['value']} s of {out['all_times']}); {forwards} encoder+RecNet forwards "
+            f"of 2x{out['batch']} faces -> {counts} | {card}")
+        log("extras", f"bench_eval | {json.dumps(out)}")
+    torch.cuda.empty_cache()
+    return total
+
+
+def extras_bench_driver(card):
+    """tools/bench_driver at its defaults (fp32, batch 128, 30 steps after 1
+    + 3), then with --upload_only 1: 24 se_gating per step, none without
+    steps. -> the launch counts of both runs."""
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ffrnet_torch.tools import bench_driver
+
+    total = {k: 0 for k in KERNELS}
+    for extra, steps in (([], 1 + 3 + 30), (["--upload_only", "1"], 0)):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out, _ = run_captured(bench_driver.main, extra)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        extras_counts_are(f"bench_driver {extra}", counts, se_gating=24 * steps)
+        for k, v in counts.items():
+            total[k] += v
+        log("extras", f"bench_driver {' '.join(extra) or '(defaults)'}: {out['value']} imgs/s, "
+            f"{out['ms_per_iter']} ms per iteration (batch {out['batch']}, {out['dtype']}, "
+            f"{out['mb_per_batch']} MB uint8 a batch); {steps} train steps -> {counts} | {card}")
+        log("extras", f"bench_driver | {json.dumps(out)}")
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_extras(dev, card):
+    """Phase 15 -> the launch counts of its example and tool runs, summed
+    (the module checks' launches are comparisons, checked but not summed)."""
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = gen(160)
+    extras_se_layer(dev, g)
+    extras_hgblock(dev, g)
+    extras_mobilefacenet(dev, g, card)
+    extras_heads(dev, g)
+    total = {k: 0 for k in KERNELS}
+    for part in (extras_train_synthetic(card), extras_bench_eval(card),
+                 extras_bench_driver(card)):
+        for k, v in part.items():
+            total[k] += v
+    torch.cuda.empty_cache()
+    log("extras", f"all extras checks passed in {time.perf_counter() - t0:.1f} s; launches of "
+        f"the example and tool runs {total} | {card}")
+    return total
+
+
 # ---------------------------------------------------------------------- main
 
 
@@ -3295,6 +3581,8 @@ def main():
     for k, v in phase_data_parallel(models, dev, smi).items():
         counts[k] += v
     for k, v in phase_model_axis(dev, smi).items():
+        counts[k] += v
+    for k, v in phase_extras(dev, smi).items():
         counts[k] += v
     if counts["int8_conv"] == 0:
         raise AssertionError("int8_conv never launched on the int8 path")

@@ -11,6 +11,12 @@ find (`ops/`, `models/`, `checkpoint/`, `eval/`, `training/`, `data/`,
     raw, rect = model.embed(images_nhwc_uint8)
     scores = model.verify(img1, img2)
 
+Beside the main path's IR-SE50 (`models/irse.py`) and RecNet
+(`models/recnet.py`), `models/` holds the reference's model-zoo extras:
+MobileFaceNet (`models/mobilefacenet.py`), the Arcface and AmSoftmax margin
+heads (`models/heads.py`), and HGBlock and SELayer (`models/hourglass.py`;
+SELayer's gate is the se_gating kernel).
+
 Hand-written Hopper kernels (`ffrnet_torch/csrc/*.cu`) carry the SE gate,
 the self-similarity Grams, the fused RecNet channel branch and the two
 alignment warps; they are built with `nvcc` at first use

@@ -22,6 +22,12 @@ does the same from the flat optax leaves a JAX checkpoint stores
 sorted at every level (`recnet_param_tree` rebuilds that tree from a
 RecNet state dict).
 
+The model zoo's extras: `mobilefacenet_state_dict`, `hgblock_state_dict`,
+`se_layer_state_dict` and `head_state_dict` (the Arcface / AmSoftmax
+kernel, whose (embedding, classes) layout is the same in both packages).
+Depthwise and grouped conv kernels (kh, kw, C/groups, C) go to (C,
+C/groups, kh, kw) by the same transpose as any HWIO kernel.
+
 The module takes plain numpy trees and imports nothing of the JAX package.
 """
 
@@ -33,6 +39,7 @@ import numpy as np
 import torch
 
 from ffrnet_torch.models.irse import unit_configs
+from ffrnet_torch.models.mobilefacenet import _ARCH as MOBILEFACENET_ARCH
 
 SD = Dict[str, torch.Tensor]
 
@@ -146,6 +153,55 @@ def recnet_state_dict(params, state=None) -> SD:
         _res_block(out, f"{name}.1", params[key]["r"], sub(key, "r"))
     out["classifier.weight"] = _t(params["classifier"]["w"])
     return out
+
+
+def _conv_block(out: SD, prefix: str, params, state) -> None:
+    _conv(out, f"{prefix}.conv", params["conv"])
+    _bn(out, f"{prefix}.bn", params["bn"], state["bn"])
+    if "prelu" in params:
+        out[f"{prefix}.prelu.weight"] = _t(params["prelu"]["slope"])
+
+
+def _depthwise(out: SD, prefix: str, params, state) -> None:
+    for k in ("conv", "conv_dw", "project"):
+        _conv_block(out, f"{prefix}.{k}", params[k], state[k])
+
+
+def mobilefacenet_state_dict(params, state) -> SD:
+    """MobileFaceNet tree -> MobileFaceNet state dict (reference keys)."""
+    out: SD = {}
+    for name, kind, *_ in MOBILEFACENET_ARCH:
+        if kind in ("conv", "linear"):
+            _conv_block(out, name, params[name], state[name])
+        elif kind == "dw":
+            _depthwise(out, name, params[name], state[name])
+        else:
+            for i, (p, s) in enumerate(zip(params[name], state[name])):
+                _depthwise(out, f"{name}.model.{i}", p, s)
+    out["linear.weight"] = _t(params["linear"]["w"])
+    _bn(out, "bn", params["bn"], state["bn"])
+    return out
+
+
+def hgblock_state_dict(params, state) -> SD:
+    """init_hgblock's tree -> HGBlock state dict: each ConvLayer under its
+    JAX name (`b1_2.conv2d.weight`, `out.conv2d.bias`, ...)."""
+    out: SD = {}
+    for name in params:
+        _conv_layer(out, name, params[name], state[name])
+    return out
+
+
+def se_layer_state_dict(params) -> SD:
+    """init_se_layer's tree -> SELayer state dict (`fc.0.weight`,
+    `fc.2.weight`; both packages keep Linear's (out, in))."""
+    return {"fc.0.weight": _t(params["fc1"]["w"]), "fc.2.weight": _t(params["fc2"]["w"])}
+
+
+def head_state_dict(kernel) -> SD:
+    """An Arcface / AmSoftmax kernel (embedding_size, classnum) -> the
+    head's state dict, the layout unchanged."""
+    return {"kernel": _t(kernel)}
 
 
 def _get(tree, keys):

@@ -60,16 +60,7 @@ class NormLayer(nn.Module):
     def forward(self, x):
         t = self.norm_type
         if t == "bn":
-            m = self.norm
-            if not self.training:
-                return ops.batch_norm(x, m.weight, m.bias, m.running_mean,
-                                      m.running_var)
-            y, mean, var = ops.batch_norm_train(x, m.weight, m.bias, m.running_mean,
-                                                m.running_var, group=ops.stats_group())
-            if self.update_stats:
-                m.running_mean.copy_(mean)
-                m.running_var.copy_(var)
-            return y
+            return batch_norm_module(self.norm, x, update_stats=self.update_stats)
         if t == "in":
             return ops.instance_norm(x, self.norm.weight, self.norm.bias)
         if t == "gn":
@@ -79,6 +70,21 @@ class NormLayer(nn.Module):
         if t == "layer":
             return ops.layer_norm(x, self.norm.weight, self.norm.bias)
         return x
+
+
+def batch_norm_module(m, x, *, update_stats: bool = True):
+    """A BatchNorm{1,2}d `m` on x (channels on axis 1), following
+    `m.training`: eval mode normalizes with the running stats; train mode
+    with the batch's (over `ops.stats_group()`'s ranks), and writes the
+    new running stats into `m` unless update_stats is False."""
+    if not m.training:
+        return ops.batch_norm(x, m.weight, m.bias, m.running_mean, m.running_var)
+    y, mean, var = ops.batch_norm_train(x, m.weight, m.bias, m.running_mean,
+                                        m.running_var, group=ops.stats_group())
+    if update_stats:
+        m.running_mean.copy_(mean)
+        m.running_var.copy_(var)
+    return y
 
 
 @contextlib.contextmanager

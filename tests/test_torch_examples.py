@@ -1,6 +1,7 @@
 """The port's quickstarts (ffrnet_torch.examples) and its serving bench
 (ffrnet_torch.tools.bench_serving), run in-process on the CPU as
-tests/test_examples.py runs examples/."""
+tests/test_examples.py runs examples/; the quickstarts and the eval and
+driver benches default to the card."""
 
 import runpy
 import sys
@@ -62,7 +63,8 @@ def test_examples_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     for module in ("ffrnet_torch.examples.embed_and_verify", "ffrnet_torch.examples.serve_http",
-                   "ffrnet_torch.examples.int8_serving"):
+                   "ffrnet_torch.examples.int8_serving", "ffrnet_torch.examples.train_synthetic",
+                   "ffrnet_torch.tools.bench_eval", "ffrnet_torch.tools.bench_driver"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             _run(module, [])
 
