@@ -1,6 +1,6 @@
 """Drive the PyTorch/H100 port's inference, ingest, training, serving,
-export, data-parallel and model-axis paths, and its model-zoo extras and
-float tools, on one NVIDIA GPU.
+export, data-parallel and model-axis paths, its model-zoo extras and float
+tools, and its int8 tools, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -131,6 +131,23 @@ exits non-zero without a result line:
               bf16) and with --sync_per_batch, and tools/bench_driver at its
               defaults and with --upload_only 1, their launches checked
               exactly, pairs/s and imgs/s logged
+ 16. int8_tools
+              the int8 tool family at full width, bf16: tools/synth (a key
+              gives one batch; the noise-free batch and 600 eval pairs
+              exact; the ms of an N=64 draw); tools/int8_cache (encoder and
+              RecNet scales: miss then hit, scales and N=256 outputs
+              bit-equal, each forward's launches exact, an entry less one
+              path stale, the miss's and hit's times logged); bench_int8
+              (--batches 128,256,512, four margins; held-out min cosine
+              >= 0.99 for both int8 arms); bench_int8_recnet at N=256
+              (isolated min cosines >= 0.99; one band warp per pipeline
+              call); bench_int8_budget (3 seeds x 100 steps; rows finite,
+              accuracies in [0, 1], each split's scoring launches checked);
+              bench_int8_convergence (300 steps, checkpoints every 100; 52
+              int8_conv per int8 step, none in the float-encoder scoring;
+              finite deltas); every tool run's launches exact; the scale
+              cache and --out in a temporary directory, and the JAX tools'
+              tracked .int8_scales.json and docs/int8_*.json unchanged
 
 The last three lines are the kernels' JSON record, the card's name and
 power limit as nvidia-smi gives them, and the result line
@@ -3288,7 +3305,7 @@ EXTRAS_MIN_COS = 0.999
 EXTRAS_STEPS = 20
 
 
-def extras_counts_are(what, counts, **want):
+def counts_are(what, counts, **want):
     expected = {k: want.get(k, 0) for k in KERNELS}
     if counts != expected:
         raise AssertionError(f"{what}: launches {counts}, expected {expected}")
@@ -3323,7 +3340,7 @@ def extras_se_layer(dev, g):
             with torch.no_grad():
                 y = layer(x)
             torch.cuda.synchronize()
-            extras_counts_are(f"SELayer({c}, 16) {dname}", launch_counts(), se_gating=1)
+            counts_are(f"SELayer({c}, 16) {dname}", launch_counts(), se_gating=1)
             with torch.no_grad():
                 want = x + se_gating_plain(x, layer.fc[0].weight, layer.fc[2].weight)
             e = check_close(f"SELayer({c}, 16) {dname} {tuple(x.shape)}", y, want, *tol)
@@ -3351,7 +3368,7 @@ def extras_hgblock(dev, g):
             reset_launch_counts()
             got = block(x.to(dev))
             torch.cuda.synchronize()
-        extras_counts_are(f"HGBlock depth {depth}", launch_counts())
+        counts_are(f"HGBlock depth {depth}", launch_counts())
         e = check_close(f"HGBlock depth {depth} {shape}", got.cpu(), want, *PATH_TOL)
         log("extras", f"HGBlock(depth={depth}, c_in={shape[1]}, c_out={c_out}, c_mid=64) "
             f"x{shape} -> {tuple(got.shape)}: card vs CPU max_abs_err {e:.3e} (atol "
@@ -3380,7 +3397,7 @@ def extras_mobilefacenet(dev, g, card):
             reset_launch_counts()
             got = model(x)
             torch.cuda.synchronize()
-            extras_counts_are(f"MobileFaceNet {dname}", launch_counts())
+            counts_are(f"MobileFaceNet {dname}", launch_counts())
             if dname == "fp32":
                 e = check_close(f"MobileFaceNet fp32 N={EXTRAS_N}", got.cpu(), want, *PATH_TOL)
                 agree = f"max_abs_err {e:.3e} (atol {PATH_TOL[0]}, rtol {PATH_TOL[1]})"
@@ -3456,7 +3473,7 @@ def extras_train_synthetic(card):
     _, lines = run_captured(train_synthetic.main, [str(EXTRAS_STEPS)])
     torch.cuda.synchronize()
     counts = launch_counts()
-    extras_counts_are(f"train_synthetic {EXTRAS_STEPS} steps", counts,
+    counts_are(f"train_synthetic {EXTRAS_STEPS} steps", counts,
                       se_gating=24 * EXTRAS_STEPS)
     losses = [float(line.split("total=")[1].split()[0]) for line in lines]
     printed = [i for i in range(EXTRAS_STEPS) if i % 5 == 0 or i == EXTRAS_STEPS - 1]
@@ -3487,7 +3504,7 @@ def extras_bench_eval(card):
         torch.cuda.synchronize()
         counts = launch_counts()
         forwards = -(-out["pairs"] // out["batch"]) * (1 + len(out["all_times"]))
-        extras_counts_are(f"bench_eval {extra}", counts, se_gating=24 * forwards,
+        counts_are(f"bench_eval {extra}", counts, se_gating=24 * forwards,
                           channel_branch=forwards)
         for k, v in counts.items():
             total[k] += v
@@ -3514,7 +3531,7 @@ def extras_bench_driver(card):
         out, _ = run_captured(bench_driver.main, extra)
         torch.cuda.synchronize()
         counts = launch_counts()
-        extras_counts_are(f"bench_driver {extra}", counts, se_gating=24 * steps)
+        counts_are(f"bench_driver {extra}", counts, se_gating=24 * steps)
         for k, v in counts.items():
             total[k] += v
         log("extras", f"bench_driver {' '.join(extra) or '(defaults)'}: {out['value']} imgs/s, "
@@ -3544,6 +3561,393 @@ def phase_extras(dev, card):
     torch.cuda.empty_cache()
     log("extras", f"all extras checks passed in {time.perf_counter() - t0:.1f} s; launches of "
         f"the example and tool runs {total} | {card}")
+    return total
+
+
+# ----------------------------------------------------------------- phase 16
+
+# the JAX tools' committed artifacts, which no port tool may write
+TRACKED_INT8_FILES = (".int8_scales.json", "docs/int8_budget.json", "docs/int8_convergence.json")
+TOOLS_SYNTH_IDS = 64
+TOOLS_CACHE_N = 256
+# (rounds, calls a round) of the duel tools: their defaults
+TOOLS_BENCH_INT8_RUNS, TOOLS_RECNET_RUNS = (3, 8), (3, 10)
+TOOLS_BENCH_INT8 = ["--batches", "128,256,512", "--margins", "0.5,0.75,1.0,1.25"]
+TOOLS_RECNET = ["--batch", "256"]
+# the horizons cut from 3 seeds x 200 steps and 600 steps to keep the phase short
+TOOLS_BUDGET = ["--seeds", "3", "--train_steps", "100"]
+TOOLS_CONVERGENCE = ["--steps", "300", "--ckpt_every", "100"]
+
+
+def file_digest(rel):
+    import hashlib
+
+    with open(os.path.join(HERE, rel), "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+class CallLaunches:
+    """Wraps `mod.name` so that each call records (tag, launch counts of the
+    call): the counts read before and after it, not reset, so the run's
+    totals stay whole. `tag(*args)` labels the call. `close()` restores."""
+
+    def __init__(self, mod, name, tag, wrap_result=False):
+        from ffrnet_torch.ops.kernels import launch_counts
+
+        self.records, self._mod, self._name = [], mod, name
+        self._fn = fn = getattr(mod, name)
+
+        def counted(call, label):
+            def run(*a, **k):
+                before = launch_counts()
+                out = call(*a, **k)
+                after = launch_counts()
+                self.records.append((label, {n: after[n] - before[n] for n in KERNELS}))
+                return out
+            return run
+
+        if wrap_result:  # a factory: count the calls of the function it returns
+            setattr(mod, name, lambda *a, **k: counted(fn(*a, **k), tag(*a)))
+        else:
+            setattr(mod, name, lambda *a, **k: counted(fn, tag(*a))(*a, **k))
+
+    def close(self):
+        setattr(self._mod, self._name, self._fn)
+
+
+def tools_synth(dev, card):
+    """synth at N=64 on the card: one key one batch, the noise-free
+    structure of a batch and of 600 eval pairs, the ms of one draw."""
+    from ffrnet_torch.data.datasets import SyntheticPairs
+    from ffrnet_torch.tools import synth
+
+    t = torch.from_numpy(SyntheticPairs(num_identities=TOOLS_SYNTH_IDS, seed=7).templates).to(dev)
+    make = synth.make_batch_fn(t, 64, TOOLS_SYNTH_IDS, 0.25)
+    a, b = make(3), make(3)
+    if not all(torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError("synth: key 3 gave two batches")
+    keep = torch.ones(112, 112, dtype=torch.bool, device=dev)
+    keep[synth.MASK] = False
+    z = synth.make_batch_fn(t, 64, TOOLS_SYNTH_IDS, 0.0)(4)
+    lab = z["label"]
+    ocl = z["img_ocl"]
+    if not (z["img_non"].equal(t[lab]) and (ocl[:, synth.MASK[0], synth.MASK[1]] == -1).all()
+            and ocl[:, keep].equal(t[lab][:, keep]) and lab.dtype == torch.int64):
+        raise AssertionError("synth: noise-free batch not the templates with the mask painted")
+    img1, img2, plab = synth.make_eval_pairs(t, 5, 600, TOOLS_SYNTH_IDS, 0.0)
+    sums = t[:, keep].sum(dim=(1, 2))
+
+    def ids(img):
+        return (img[:, keep].sum(dim=(1, 2))[:, None] - sums[None]).abs().argmin(dim=1)
+
+    i1, i2 = ids(img1), ids(img2)
+    if not (img1.equal(t[i1]) and img2[:, keep].equal(t[i2][:, keep])
+            and (img2[:, synth.MASK[0], synth.MASK[1]] == -1).all()
+            and plab.tolist() == [1] * 300 + [0] * 300 and i1[:300].equal(i2[:300])
+            and (i1[300:] != i2[300:]).all()):
+        raise AssertionError("synth: eval pairs lack the label halves or distinct negatives")
+    ms = cuda_ms(lambda: make(11), iters=20)
+    log("int8_tools", f"synth: key -> batch bit-equal; noise-free batch and 600 eval pairs "
+        f"(300 same, 300 distinct identities, img2 masked) exact; one N=64 draw "
+        f"{ms:.4f} ms (CUDA events, mean of 20) | {card}")
+
+
+def tools_int8_cache(dev, root):
+    """static_encoder_tree and static_recnet_tree on the bf16 bench models:
+    miss then hit with bit-equal scales and N=256 outputs, each forward's
+    launches exact (checked, not summed); an entry with one path removed is
+    stale. Logs the miss's and the hit's host time."""
+    from ffrnet_torch.models.irse import build_backbone
+    from ffrnet_torch.models.optimize import fold_backbone_bn
+    from ffrnet_torch.models.quantize import quantize_encoder, quantize_recnet
+    from ffrnet_torch.models.recnet import build_recnet
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ffrnet_torch.tools import int8_cache as C
+
+    dt = torch.bfloat16
+    f = os.path.join(root, "cache_check.json")
+    enc = fold_backbone_bn(build_backbone(generator=gen(0))).to(dev, dt)
+    rec = build_recnet(generator=gen(1)).to(dev, dt)
+    x = C.uniform_faces(TOOLS_CACHE_N, 9, dt, dev)
+
+    def enc_fwd(x):
+        return enc(x)[0]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t) * 1e3
+
+    with torch.inference_mode():
+        fm = enc_fwd(x)
+    qenc, qrec = quantize_encoder(enc), quantize_recnet(rec)
+    for what, q, sites, key, run, fwd, per_fwd, stale_path in (
+            ("encoder", qenc, INT8_ENCODER_SITES, C.encoder_cache_key(qenc, dtype_name="bf16"),
+             lambda m, kw: C.static_encoder_tree(m, dt, **kw), lambda m: m(x)[1],
+             {"se_gating": 24, "int8_conv": INT8_ENCODER_SITES}, "body/7/res/conv2/w"),
+            ("RecNet", qrec, INT8_RECNET_SITES, C.recnet_cache_key(qrec, enc, dtype_name="bf16"),
+             lambda m, kw: C.static_recnet_tree(m, enc_fwd, dt, **kw), lambda m: m(fm)[0],
+             {"channel_branch": 1, "int8_conv": INT8_RECNET_SITES}, "merge/c/conv/w")):
+        kw = dict(cache_file=f, cache_key=key)
+        (m1, s1), miss_ms = timed(lambda: run(q, kw))
+        (m2, s2), hit_ms = timed(lambda: run(q, kw))
+        sc1 = [s.x_scale for _, s in C.quantized_leaf_items(m1)]
+        sc2 = [s.x_scale for _, s in C.quantized_leaf_items(m2)]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with torch.inference_mode():
+            y1, y2 = fwd(m1), fwd(m2)
+        torch.cuda.synchronize()
+        counts_are(f"int8_cache {what} miss and hit forwards", launch_counts(),
+                   **{k: 2 * v for k, v in per_fwd.items()})
+        if ((s1, s2) != (C.STATUS_MISS, C.STATUS_HIT) or len(sc1) != sites
+                or not all(a.equal(b) for a, b in zip(sc1, sc2)) or not y1.equal(y2)):
+            raise AssertionError(f"int8_cache {what}: {s1}, {s2}; scales or N={len(x)} outputs "
+                                 f"differ")
+        entry = C.load_scales(f, key)
+        del entry[stale_path]
+        C.save_scales(f, key, entry)
+        s3 = run(q, kw)[1]
+        if s3 != C.STATUS_STALE:
+            raise AssertionError(f"int8_cache {what}: an entry less {stale_path} gave {s3!r}")
+        log("int8_tools", f"int8_cache {what} bf16: {s1} in {miss_ms:.1f} ms (a calibration "
+            f"pass on 8 faces) -> {s2} in {hit_ms:.1f} ms (host clock), "
+            f"{len(sc1)} scales and the N={len(x)} outputs bit-equal, launches {per_fwd} per "
+            f"forward; less {stale_path}: {s3}")
+
+
+def tools_bench_int8(card):
+    """bench_int8 on the card: held-out cosines against float, and the
+    exact launches of every forward it ran. -> its launch counts."""
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ffrnet_torch.tools import bench_int8
+    from ffrnet_torch.utils.profiling import WARMUP
+
+    rounds, calls = TOOLS_BENCH_INT8_RUNS
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out, _ = run_captured(bench_int8.main, TOOLS_BENCH_INT8 + [
+        "--rounds", str(rounds), "--iters", str(calls)])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    per_arm = rounds * (WARMUP + calls)
+    batches = [int(b) for b in out["per_batch"]]
+    n_margins = len(out["margin_sweep_heldout"]["margins"])
+    # calibration (float sites), then per batch 3 arms' cosine forwards and
+    # their timed calls, then the sweep's float forward and one per margin
+    forwards = 1 + len(batches) * 3 * (1 + per_arm) + 1 + n_margins
+    int8_forwards = len(batches) * 2 * (1 + per_arm) + n_margins
+    counts_are("bench_int8", counts, se_gating=24 * forwards,
+               int8_conv=INT8_ENCODER_SITES * int8_forwards)
+    for b, rec in out["per_batch"].items():
+        cos = min(rec["embed_cos_min"], rec["embed_cos_min_static"])
+        if cos < INT8_MIN_COS_FLOAT:
+            raise AssertionError(f"bench_int8 N={b}: held-out min cosine {cos} below "
+                                 f"{INT8_MIN_COS_FLOAT}")
+        log("int8_tools", f"bench_int8 {out['dtype']} N={b}: encoder ms float "
+            f"{rec['encoder_ms_float']}, dynamic {rec['encoder_ms_int8']} "
+            f"(speedup {rec['speedup_dynamic']}, {rec['imgs_per_sec_int8']} imgs/s), static "
+            f"{rec['encoder_ms_int8_static']} (speedup {rec['speedup_static']}, "
+            f"{rec['imgs_per_sec_static']} imgs/s; float "
+            f"{int(b) / rec['encoder_ms_float'] * 1e3:.1f}); held-out cosine mean/min dynamic {rec['embed_cos_mean']:.5f}/"
+            f"{rec['embed_cos_min']:.5f}, static {rec['embed_cos_mean_static']:.5f}/"
+            f"{rec['embed_cos_min_static']:.5f} | {card}")
+    sweep = out["margin_sweep_heldout"]
+    log("int8_tools", f"bench_int8 margin sweep N={sweep['batch']}: " + ", ".join(
+        f"{m}: {v['cos_mean']:.5f}/{v['cos_min']:.5f}" for m, v in sweep["margins"].items())
+        + f"; {forwards} forwards, {int8_forwards} int8 -> {counts}")
+    log("int8_tools", f"bench_int8 | {json.dumps(out)}")
+    return counts
+
+
+def tools_bench_int8_recnet(card):
+    """bench_int8_recnet at its defaults: isolated cosines, and the exact
+    launches (a band warp per pipeline call). -> its launch counts."""
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ffrnet_torch.tools import bench_int8_recnet
+    from ffrnet_torch.tools.int8_cache import STATUS_MISS
+    from ffrnet_torch.utils.profiling import WARMUP
+
+    rounds, calls = TOOLS_RECNET_RUNS
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    out, _ = run_captured(bench_int8_recnet.main, TOOLS_RECNET + [
+        "--rounds", str(rounds), "--iters", str(calls)])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if (out["recnet_scales_cache"], out["enc_scales_cache"]) != (STATUS_MISS, STATUS_MISS):
+        raise AssertionError(f"bench_int8_recnet: caches {out['recnet_scales_cache']}, "
+                             f"{out['enc_scales_cache']} in a fresh file")
+    per_arm = rounds * (WARMUP + calls)
+    pipe_calls = 2 * per_arm * len(out["pipeline"])
+    # RecNet's calibration (its encoder forward, one float RecNet forward),
+    # the held-out feature maps, the 3 cosine forwards and the timed
+    # isolated calls; the encoder's calibration (float sites); the pipeline
+    counts_are("bench_int8_recnet", counts,
+               se_gating=24 * (1 + 1 + 1 + pipe_calls),
+               channel_branch=1 + 3 + 3 * per_arm + pipe_calls,
+               warp_affine_band=pipe_calls,
+               int8_conv=INT8_RECNET_SITES * (2 + 2 * per_arm)
+               + INT8_ENCODER_SITES * pipe_calls + INT8_RECNET_SITES * pipe_calls // 2)
+    iso = out["isolated"]
+    cos = min(iso["cos_min_dynamic"], iso["cos_min_static"])
+    if cos < INT8_MIN_COS_FLOAT:
+        raise AssertionError(f"bench_int8_recnet: isolated min cosine {cos} below "
+                             f"{INT8_MIN_COS_FLOAT}")
+    log("int8_tools", f"bench_int8_recnet {out['dtype']} N={out['batch']} isolated RecNet ms "
+        f"float {iso['recnet_ms_bf16']}, dynamic {iso['recnet_ms_dynamic']} (speedup "
+        f"{iso['speedup_dynamic']}), static {iso['recnet_ms_static']} (speedup "
+        f"{iso['speedup_static']}); rectified cosine mean/min dynamic "
+        f"{iso['cos_mean_dynamic']}/{iso['cos_min_dynamic']}, static "
+        f"{iso['cos_mean_static']}/{iso['cos_min_static']} | {card}")
+    for pb, sec in out["pipeline"].items():
+        log("int8_tools", f"bench_int8_recnet pipeline N={pb} (align, static int8 encoder, "
+            f"RecNet, pair cosines): {sec['faces_per_sec_rec_bf16']} faces/s with the float "
+            f"RecNet ({sec['pipeline_ms_rec_bf16']} ms), {sec['faces_per_sec_rec_int8']} with "
+            f"the static int8 RecNet ({sec['pipeline_ms_rec_int8']} ms), speedup "
+            f"{sec['speedup']}; {2 * per_arm} calls, one band warp each | {card}")
+    log("int8_tools", f"bench_int8_recnet: {pipe_calls} pipeline calls -> {counts}")
+    log("int8_tools", f"bench_int8_recnet | {json.dumps(out)}")
+    return counts
+
+
+def tools_budget(root, card):
+    """bench_int8_budget: finite rows, accuracies in [0, 1], and the exact
+    int8_conv launches of each split's scoring. -> its launch counts."""
+    from ffrnet_torch.models.quantize import quantized_sites
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ffrnet_torch.tools import bench_int8_budget as B
+
+    def split_of(score_fn, batches):
+        ffr = score_fn.__self__
+        return tuple(len(quantized_sites(m)) for m in (ffr.encoder, ffr.recnet))
+
+    probe = CallLaunches(B, "evaluate_pairs", split_of)
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out, _ = run_captured(B.main, TOOLS_BUDGET + ["--out", os.path.join(root, "b.json")])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        probe.close()
+    cfg = out["config"]
+    n_batches = -(-cfg["eval_pairs"] // B.EVAL_BATCH)
+    want = [(0, 0)] + [(INT8_ENCODER_SITES, 0), (0, INT8_RECNET_SITES),
+                       (INT8_ENCODER_SITES, INT8_RECNET_SITES)] * len(cfg["margins"])
+    if [s for s, _ in probe.records] != want * cfg["seeds"]:
+        raise AssertionError(f"bench_int8_budget: scored splits {[s for s, _ in probe.records]}")
+    for (enc_sites, rec_sites), c in probe.records:
+        counts_are(f"bench_int8_budget split {enc_sites}+{rec_sites}", c,
+                   se_gating=24 * n_batches, channel_branch=n_batches,
+                   int8_conv=(enc_sites + rec_sites) * n_batches)
+    scorings = len(probe.records)
+    # per seed: 24 SE gates a train step, the encoder's calibration pass and
+    # RecNet's (one fused forward); then the scorings
+    counts_are("bench_int8_budget", counts,
+               se_gating=24 * cfg["seeds"] * (cfg["train_steps"] + 1) + 24 * n_batches * scorings,
+               channel_branch=cfg["seeds"] + n_batches * scorings,
+               int8_conv=sum((e + r) * n_batches for (e, r), _ in probe.records))
+    for r in out["rows"]:
+        vals = [r[k] for k in ("float_rect", "float_raw", "int8_rect", "int8_raw")]
+        if not (np.isfinite(vals + [r["d_rect"], r["d_raw"]]).all()
+                and all(0.0 <= v <= 1.0 for v in vals)):
+            raise AssertionError(f"bench_int8_budget: row {r}")
+    log("int8_tools", f"bench_int8_budget {cfg['dtype']}, {cfg['seeds']} seeds x "
+        f"{cfg['train_steps']} steps, {cfg['eval_pairs']} ocl-1 pairs, margins "
+        f"{cfg['margins']}: {scorings} scorings in {out['wall_s']} s, each split's int8_conv "
+        f"launches exact -> {counts} | {card}")
+    for key, v in out["summary"].items():
+        log("int8_tools", f"bench_int8_budget summary {key}: worst |d_rect| "
+            f"{v['worst_abs_d_rect']}, |d_raw| {v['worst_abs_d_raw']}; mean d_rect "
+            f"{v['mean_d_rect']}, d_raw {v['mean_d_raw']}")
+    log("int8_tools", f"bench_int8_budget rows | {json.dumps(out['rows'])}")
+    return counts
+
+
+def tools_convergence(root, card):
+    """bench_int8_convergence: the int8 arm's steps launch int8_conv 52
+    times each, its float-encoder scoring none; finite deltas. -> its
+    launch counts."""
+    from ffrnet_torch.models.quantize import quantized_sites
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ffrnet_torch.tools import bench_int8_convergence as V
+
+    def int8_encoder(encoder, *_):
+        return len(quantized_sites(encoder)) > 0
+
+    steps = CallLaunches(V, "train_step", int8_encoder)
+    scores = CallLaunches(V, "make_pair_score_fn", int8_encoder, wrap_result=True)
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out, _ = run_captured(V.main, TOOLS_CONVERGENCE + ["--out",
+                                                          os.path.join(root, "c.json")])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        scores.close()
+        steps.close()
+    cfg = out["config"]
+    n_ckpt = len(out["deltas_int8_minus_float"])
+    if [q for q, _ in steps.records] != [False] * cfg["steps"] + [True] * cfg["steps"]:
+        raise AssertionError("bench_int8_convergence: the arms' steps out of order")
+    for q, c in steps.records:
+        counts_are(f"bench_int8_convergence {'int8' if q else 'float'} step", c, se_gating=24,
+                   int8_conv=INT8_ENCODER_SITES if q else 0)
+    if [q for q, _ in scores.records] != [False] * n_ckpt + [False, True] * n_ckpt:
+        raise AssertionError("bench_int8_convergence: checkpoint scorings out of order")
+    for q, c in scores.records:
+        counts_are(f"bench_int8_convergence {'arm-encoder' if q else 'float-encoder'} scoring",
+                   c, se_gating=24, channel_branch=1, int8_conv=INT8_ENCODER_SITES if q else 0)
+    counts_are("bench_int8_convergence", counts,
+               se_gating=24 * (1 + 2 * cfg["steps"] + 3 * n_ckpt), channel_branch=3 * n_ckpt,
+               int8_conv=INT8_ENCODER_SITES * (cfg["steps"] + n_ckpt))
+    deltas = [[d[k] for k in ("d_eval_rect", "d_eval_raw", "d_TrainAcc")]
+              for d in out["deltas_int8_minus_float"]]
+    if not np.isfinite(deltas).all():
+        raise AssertionError(f"bench_int8_convergence: deltas {deltas}")
+    for name, curve in out["arms"].items():
+        log("int8_tools", f"bench_int8_convergence {name} | {json.dumps(curve)}")
+    log("int8_tools", f"bench_int8_convergence {cfg['dtype']} {cfg['steps']} steps: deltas "
+        f"int8 - float {json.dumps(out['deltas_int8_minus_float'])}; int8 steps 52 int8_conv "
+        f"each, float-encoder scoring none; {out['wall_s']} s -> {counts} | {card}")
+    return counts
+
+
+def phase_int8_tools(dev, card):
+    """Phase 16 -> the launch counts of its tool runs, summed (synth
+    launches no kernel; the cache check's forwards are checked, not
+    summed). The scale cache and every --out go to a temporary directory;
+    the JAX tools' tracked files keep their bytes."""
+    import tempfile
+
+    from ffrnet_torch.tools import int8_cache
+
+    t0 = time.perf_counter()
+    before = {f: file_digest(f) for f in TRACKED_INT8_FILES}
+    tools_synth(dev, card)
+    total = {k: 0 for k in KERNELS}
+    default_file = int8_cache.default_cache_file
+    with tempfile.TemporaryDirectory(prefix="ffrnet_int8_tools_") as root:
+        int8_cache.default_cache_file = lambda: os.path.join(root, "scales.json")
+        try:
+            tools_int8_cache(dev, root)
+            for part in (tools_bench_int8(card), tools_bench_int8_recnet(card),
+                         tools_budget(root, card), tools_convergence(root, card)):
+                for k, v in part.items():
+                    total[k] += v
+        finally:
+            int8_cache.default_cache_file = default_file
+    after = {f: file_digest(f) for f in TRACKED_INT8_FILES}
+    if after != before:
+        raise AssertionError(f"int8 tools wrote a tracked file: {before} -> {after}")
+    torch.cuda.empty_cache()
+    log("int8_tools", f"all int8 tool checks passed in {time.perf_counter() - t0:.1f} s; "
+        f"tracked files unchanged ({', '.join(TRACKED_INT8_FILES)}); launches of the tool runs "
+        f"{total} | {card}")
     return total
 
 
@@ -3583,6 +3987,8 @@ def main():
     for k, v in phase_model_axis(dev, smi).items():
         counts[k] += v
     for k, v in phase_extras(dev, smi).items():
+        counts[k] += v
+    for k, v in phase_int8_tools(dev, smi).items():
         counts[k] += v
     if counts["int8_conv"] == 0:
         raise AssertionError("int8_conv never launched on the int8 path")
