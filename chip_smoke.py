@@ -1,6 +1,7 @@
 """Drive the PyTorch/H100 port's inference, ingest, training, serving,
 export, data-parallel and model-axis paths, its model-zoo extras and float
-tools, and its int8 tools, on one NVIDIA GPU.
+tools, its int8 tools and its stage, cache-build and parity tools, on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -143,13 +144,32 @@ exits non-zero without a result line:
               (isolated min cosines >= 0.99; one band warp per pipeline
               call); bench_int8_budget (3 seeds x 100 steps; rows finite,
               accuracies in [0, 1], each split's scoring launches checked);
-              bench_int8_convergence (300 steps, checkpoints every 100; 52
+              bench_int8_convergence (100 steps, checkpoints every 50; 52
               int8_conv per int8 step, none in the float-encoder scoring;
               finite deltas); every tool run's launches exact; the scale
               cache and --out in a temporary directory, and the JAX tools'
               tracked .int8_scales.json and docs/int8_*.json unchanged
+ 17. stage_tools
+              the last three tools at full width: tools/bench_stages at
+              N=256 in bf16 with --int8 1 and in fp32 (--iters 4, so the
+              gather warp's row too), each row's launches exact per call,
+              its ms and TFLOP/s and the int8 stage shares logged;
+              tools/bench_cache_build (1024 samples, batches of 256, bf16,
+              2 rounds), each build's launches exact (48 se_gating a batch,
+              104 int8_conv more in the int8 arm), the first float build
+              against encode_frozen, the first int8 build against it by
+              cosine >= 0.99, the encoder's share of a build; and
+              tools/parity_check on weights save_pth wrote from
+              FFRNet.random(seed=0): compare_with_torch on the card (each
+              *_max_diff <= 1e-4), run_lfw --int8 1 over phase 9's kind of
+              600-pair tree (accuracies in [0, 1], d_int8 the rounded
+              deltas, the flag a bool, each eval's launches exact), its first
+              float batch's scores against the CPU; the scale cache, tree
+              and weights in a temporary directory, the tracked files
+              unchanged
 
-The last three lines are the kernels' JSON record, the card's name and
+Each phase's seconds are logged as it ends, and all of them on the
+"[done]" line. The last three lines are the kernels' JSON record, the card's name and
 power limit as nvidia-smi gives them, and the result line
 {"ok": true, "device": {...}}.
 """
@@ -3574,9 +3594,11 @@ TOOLS_CACHE_N = 256
 TOOLS_BENCH_INT8_RUNS, TOOLS_RECNET_RUNS = (3, 8), (3, 10)
 TOOLS_BENCH_INT8 = ["--batches", "128,256,512", "--margins", "0.5,0.75,1.0,1.25"]
 TOOLS_RECNET = ["--batch", "256"]
-# the horizons cut from 3 seeds x 200 steps and 600 steps to keep the phase short
+# the horizons cut from 3 seeds x 200 steps and 600 steps to keep the phase
+# short; the convergence run to 100 steps (checkpoints every 50) to make
+# room for phase 17 within half the script's time limit
 TOOLS_BUDGET = ["--seeds", "3", "--train_steps", "100"]
-TOOLS_CONVERGENCE = ["--steps", "300", "--ckpt_every", "100"]
+TOOLS_CONVERGENCE = ["--steps", "100", "--ckpt_every", "50"]
 
 
 def file_digest(rel):
@@ -3951,14 +3973,317 @@ def phase_int8_tools(dev, card):
     return total
 
 
+# ----------------------------------------------------------------- phase 17
+
+# the two bench_stages runs at full width; the fp32 run's --iters 4 adds the
+# gather warp's row (2 calls after the warm-up)
+STAGES_RUNS = (["--batch", "256", "--dtype", "bf16", "--int8", "1"],
+               ["--batch", "256", "--dtype", "fp32", "--iters", "4"])
+# kernel launches of one call of each bench_stages row
+STAGES_ROW_LAUNCHES = {
+    "stem": {}, "stage1": {"se_gating": 3}, "stage2": {"se_gating": 4},
+    "stage3": {"se_gating": 14}, "stage4": {"se_gating": 3},
+    "encoder_full": {"se_gating": 24}, "recnet": {"channel_branch": 1}, "cp2tform_solve": {},
+    "warp_band": {"warp_affine_band": 1}, "warp_full": {"warp_affine_full": 1},
+    "warp_gather": {}, "encoder_int8": {"se_gating": 24, "int8_conv": INT8_ENCODER_SITES},
+    "recnet_int8": {"channel_branch": 1, "int8_conv": INT8_RECNET_SITES}}
+# bench_cache_build at full width: 1024 samples, 4 batches of 256 a build
+CACHE_BUILD_ARGS = ["--batch", "256", "--dtype", "bf16", "--rounds", "2", "--n", "1024"]
+PARITY_BATCH = 64  # parity_check.run_lfw's batch of pairs
+
+
+def add_counts(total, part):
+    for k, v in part.items():
+        total[k] += v
+
+
+def stage_bench_stages(card):
+    """tools/bench_stages in bf16 with --int8 1 and in fp32: each row's
+    launches exact, per call of the row (CallLaunches on time_op). -> the
+    runs' launch counts."""
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ffrnet_torch.tools import bench_stages
+    from ffrnet_torch.utils import profiling
+
+    total = {k: 0 for k in KERNELS}
+    for argv in STAGES_RUNS:
+        probe = CallLaunches(profiling, "time_op", lambda fn, x, iters: iters)
+        try:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            out, _ = run_captured(bench_stages.main, argv)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        finally:
+            probe.close()
+        res, dt = out["results"], out["dtype"]
+        rows = [k for k in res if k != "int8_stage_shares"]
+        if len(rows) != len(probe.records):
+            raise AssertionError(f"bench_stages {dt}: {len(probe.records)} timed rows for "
+                                 f"{rows}")
+        want = {k: 0 for k in KERNELS}
+        for name, (iters, c) in zip(rows, probe.records):
+            calls = profiling.WARMUP + iters
+            per = {k: v * calls for k, v in STAGES_ROW_LAUNCHES[name].items()}
+            counts_are(f"bench_stages {dt} {name} ({calls} calls)", c, **per)
+            add_counts(want, per)
+        if "encoder_int8" in res:
+            # a fresh scale cache: the encoder's calibration pass (float
+            # sites), RecNet's (the float encoder, one float RecNet forward)
+            want["se_gating"] += 2 * 24
+            want["channel_branch"] += 1
+        counts_are(f"bench_stages {dt}", counts, **want)
+        add_counts(total, counts)
+        log("stage_tools", f"bench_stages {dt} N={out['batch']}: " + ", ".join(
+            f"{k} {v['ms']} ms" + (f" ({v['tflops']} TFLOP/s)" if "tflops" in v else "")
+            for k, v in res.items() if k != "int8_stage_shares")
+            + f"; each row's launches exact -> {counts} | {card}")
+        if "int8_stage_shares" in res:
+            sh = res["int8_stage_shares"]
+            log("stage_tools", f"bench_stages int8 stage shares: " + ", ".join(
+                f"{k} {v['ms']} ms ({v['share']})" for k, v in sh.items() if k != "sum_ms")
+                + f"; sum {sh['sum_ms']} ms | {card}")
+        log("stage_tools", f"bench_stages {dt} | {json.dumps(out)}")
+    return total
+
+
+def cached_array(d, key, flip):
+    """One feature file of a bf16 cache (stored as uint16 bits) as fp32."""
+    from ffrnet_torch.training.feature_cache import _fname
+
+    a = np.load(os.path.join(d, _fname(key, flip)))
+    return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).float()
+
+
+def stage_cache_build(dev, root, card):
+    """tools/bench_cache_build at full width, bf16: each build's launches
+    exact (48 se_gating a batch, and 104 int8_conv in the int8 arm); the
+    first build of each arm kept; the float one against encode_frozen on
+    its first batch, the int8 one against the float one by cosine; the
+    encoder's share of a build. -> the run's launch counts."""
+    import copy
+
+    from ffrnet_torch.data.pipeline import BatchLoader
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ffrnet_torch.tools import bench_cache_build as B
+    from ffrnet_torch.training.feature_cache import FEATURE_SHAPES
+    from ffrnet_torch.training.trainer import encode_frozen
+    from ffrnet_torch.utils.profiling import time_op
+
+    real, records, kept = B.one_build, [], {}
+
+    def counted(dataset, encoder, arm, **kw):
+        name = "int8" if arm else "float"
+        if name not in kept:  # each arm's first (warm) build is kept
+            kw["cache_dir"] = os.path.join(root, f"cache_{name}")
+            kept[name] = (dataset, encoder, arm, kw["cache_dir"])
+        before = launch_counts()
+        secs = real(dataset, encoder, arm, **kw)
+        after = launch_counts()
+        records.append((name, {k: after[k] - before[k] for k in KERNELS}))
+        return secs
+
+    B.one_build = counted
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out, _ = run_captured(B.main, CACHE_BUILD_ARGS)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        B.one_build = real
+    n, batch = out["n"], out["batch"]
+    batches = -(-n // batch)
+    if [a for a, _ in records] != ["float", "int8"] * (1 + len(out["pass_s"]["float"])):
+        raise AssertionError(f"bench_cache_build: builds {[a for a, _ in records]}")
+    for arm, c in records:
+        counts_are(f"bench_cache_build {arm} build", c, se_gating=48 * batches,
+                   int8_conv=104 * batches if arm == "int8" else 0)
+    int8_builds = sum(a == "int8" for a, _ in records)
+    # prepare_int8_encoder's calibration pass runs the float sites
+    counts_are("bench_cache_build", counts, se_gating=48 * batches * len(records) + 24,
+               int8_conv=104 * batches * int8_builds)
+
+    ds, enc, _, float_dir = kept["float"]
+    half = copy.deepcopy(enc).to(torch.bfloat16)
+    first = next(iter(BatchLoader(ds, batch, shuffle=False, drop_last=False, seed=0,
+                                  num_threads=2, device=dev).epoch(0)))
+    errs = []
+    with torch.inference_mode():
+        for flip in (False, True):
+            b = {k: (v.flip(2) if flip and k != "label" else v) for k, v in first.items()}
+            feats = encode_frozen(half, b)
+            for key in FEATURE_SHAPES:
+                t = feats[key].float()
+                want = (t.permute(0, 2, 3, 1) if t.ndim == 4 else t).cpu()
+                got = cached_array(float_dir, key, flip)[:len(want)]
+                errs.append(check_close(f"bench_cache_build float cache {key} flip {flip}",
+                                        got, want, *BF16_TOL))
+    cos = []
+    for key in FEATURE_SHAPES:
+        for flip in (False, True):
+            a = cached_array(kept["int8"][3], key, flip).reshape(n, -1)
+            f = cached_array(float_dir, key, flip).reshape(n, -1)
+            cos.append(min_cos(a, f))
+    if min(cos) < INT8_MIN_COS_FLOAT:
+        raise AssertionError(f"bench_cache_build: int8 cache min cosine {min(cos)} against "
+                             f"the float cache, below {INT8_MIN_COS_FLOAT}")
+
+    # the encoder alone on one device-resident batch (both flips), per arm
+    flips = [{k: (v.flip(2) if f and k != "label" else v) for k, v in first.items()}
+             for f in (False, True)]
+    enc_s = {}
+    for arm, model in (("float", half), ("int8", kept["int8"][2]["encoder_factory"]())):
+        ms = time_op(lambda _, m=model: [encode_frozen(m, fb) for fb in flips],
+                     first["img_non"], iters=5)
+        enc_s[arm] = ms * batches / 1e3
+    split = ", ".join(f"{a} {enc_s[a]:.3f} s of {out['median_s'][a]} s "
+                      f"({enc_s[a] / out['median_s'][a]:.1%})" for a in enc_s)
+    log("stage_tools", f"bench_cache_build {out['dtype']} n={n} (batches of {batch}, "
+        f"{len(out['pass_s']['float'])} rounds): samples/s float "
+        f"{out['samples_per_s']['float']}, int8 {out['samples_per_s']['int8']}, speedup_int8 "
+        f"{out['speedup_int8']}; calibration {out['calibration_s_onetime']} s; encoder alone "
+        f"per build (CUDA events, mean of 5 batches x {batches}) {split}; kept float cache vs "
+        f"encode_frozen max_abs_err {max(errs):.3e} (tol {BF16_TOL}); int8 cache vs float min "
+        f"cosine {min(cos):.5f} (>= {INT8_MIN_COS_FLOAT}); each build's launches exact -> "
+        f"{counts} | {card}")
+    log("stage_tools", f"bench_cache_build | {json.dumps(out)}")
+    return counts
+
+
+def stage_parity(dev, root, tree, card):
+    """tools/parity_check on weights save_pth wrote from FFRNet.random(0):
+    compare_with_torch on the card (each *_max_diff within PATH_TOL), and
+    run_lfw --int8 over the 600-pair tree (accuracies in [0, 1], d_int8 the
+    rounded deltas, the flag a bool, each eval's launches exact), its first
+    float batch's scores on the card against the CPU. -> the runs' launch
+    counts."""
+    from ffrnet_torch.api import FFRNet
+    from ffrnet_torch.checkpoint.pth_io import save_pth
+    from ffrnet_torch.data.datasets import LfwPairs
+    from ffrnet_torch.data.pipeline import BatchLoader
+    from ffrnet_torch.eval import runner
+    from ffrnet_torch.models.quantize import quantized_sites
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ffrnet_torch.tools import parity_check as P
+
+    model = FFRNet.random(seed=0, device=dev)
+    enc_path, rec_path = os.path.join(root, "se50.pth"), os.path.join(root, "FFRNet.pth")
+    save_pth({k: v.cpu() for k, v in model.encoder.state_dict().items()}, enc_path)
+    save_pth({"RecNet": {k: v.cpu() for k, v in model.recnet.state_dict().items()}}, rec_path)
+    total = {k: 0 for k in KERNELS}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    rep = P.compare_with_torch(enc_path, rec_path, device=dev)
+    torch.cuda.synchronize()
+    counts_are("parity_check compare_with_torch", launch_counts(), se_gating=24,
+               channel_branch=1)
+    add_counts(total, launch_counts())
+    diffs = {k: rep[k] for k in ("featmap_max_diff", "embed_max_diff", "rectified_max_diff")}
+    if not all(v <= PATH_TOL[0] for v in diffs.values()):
+        raise AssertionError(f"parity_check: card vs CPU {diffs}, above {PATH_TOL[0]}")
+    log("stage_tools", f"parity_check compare_with_torch (fp32, BN unfolded, N=4, card vs "
+        f"CPU): {diffs} (each <= {PATH_TOL[0]}), embed_norm {rep['embed_norm']} | {card}")
+
+    def int8_of(score_fn, batches):
+        return len(quantized_sites(score_fn.__self__.encoder)) > 0
+
+    pairs = os.path.join(tree, "pairs.txt")
+    probe = CallLaunches(runner, "evaluate_pairs", int8_of)
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        lfw = P.run_lfw(enc_path, rec_path, tree, pairs, batch_size=PARITY_BATCH, int8=True,
+                        device=dev)
+        torch.cuda.synchronize()
+        lfw_s = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        probe.close()
+    n_batches = -(-DRIVER_PAIRS // PARITY_BATCH)
+    if [q for q, _ in probe.records] != [False, True] * 3:
+        raise AssertionError(f"parity_check run_lfw: evals {[q for q, _ in probe.records]}")
+    for q, c in probe.records:
+        counts_are(f"parity_check {'int8' if q else 'float'} eval", c,
+                   se_gating=24 * n_batches, channel_branch=n_batches,
+                   int8_conv=(INT8_ENCODER_SITES + INT8_RECNET_SITES) * n_batches if q else 0)
+    # calibrate_int8: the encoder's pass and RecNet's on its feature maps,
+    # float sites
+    counts_are("parity_check run_lfw", counts, se_gating=24 * (6 * n_batches + 1),
+               channel_branch=6 * n_batches + 1,
+               int8_conv=3 * (INT8_ENCODER_SITES + INT8_RECNET_SITES) * n_batches)
+    add_counts(total, counts)
+    for ocl, cell in lfw.items():
+        accs = [cell[k] for k in ("acc_new", "acc", "acc_new_int8", "acc_int8")]
+        d = [cell["acc_new_int8"] - cell["acc_new"], cell["acc_int8"] - cell["acc"]]
+        if not (all(0.0 <= a <= 1.0 for a in accs) and cell["d_int8"] == [round(v, 4) for v in d]
+                and isinstance(cell["int8_within_0.1pct"], bool)):
+            raise AssertionError(f"parity_check run_lfw {ocl}: {cell}")
+
+    ds = LfwPairs(tree, pairs, test_ocl_num=0, flip_prob=0.0)
+    b = next(iter(BatchLoader(ds, PARITY_BATCH, shuffle=False, drop_last=False).epoch(0)))
+    card_s = P.load_model(enc_path, rec_path, dev).pair_scores(b["img1"], b["img2"])
+    cpu_s = P.load_model(enc_path, rec_path, "cpu").pair_scores(b["img1"], b["img2"])
+    errs = [check_close(f"parity_check first float batch {name} scores card vs CPU",
+                        a.cpu(), c, *PATH_TOL)
+            for name, a, c in zip(("raw", "rectified"), card_s, cpu_s)]
+    log("stage_tools", f"parity_check run_lfw --int8 1 over {DRIVER_PAIRS} pairs (batches of "
+        f"{PARITY_BATCH}) in {lfw_s:.1f} s: {json.dumps(lfw)}; first float batch's scores "
+        f"card vs CPU max_abs_err raw {errs[0]:.3e}, rectified {errs[1]:.3e} (tol {PATH_TOL}); "
+        f"each eval's launches exact -> {counts} | {card}")
+    return total
+
+
+def phase_stage_tools(dev, card):
+    """Phase 17 -> the launch counts of its tool runs, summed (comparisons
+    with the CPU and the encoder-alone timing not counted). The scale
+    cache, the tree, the weights and the kept caches go to a temporary
+    directory; the JAX tools' tracked files keep their bytes."""
+    import tempfile
+
+    from ffrnet_torch.tools import int8_cache
+
+    t0 = time.perf_counter()
+    before = {f: file_digest(f) for f in TRACKED_INT8_FILES}
+    total = {k: 0 for k in KERNELS}
+    default_file = int8_cache.default_cache_file
+    with tempfile.TemporaryDirectory(prefix="ffrnet_stage_tools_") as root:
+        int8_cache.default_cache_file = lambda: os.path.join(root, "scales.json")
+        try:
+            tree = os.path.join(root, "tree")
+            driver_tree(tree)
+            for part in (stage_bench_stages(card), stage_cache_build(dev, root, card),
+                         stage_parity(dev, root, tree, card)):
+                add_counts(total, part)
+        finally:
+            int8_cache.default_cache_file = default_file
+    after = {f: file_digest(f) for f in TRACKED_INT8_FILES}
+    if after != before:
+        raise AssertionError(f"stage tools wrote a tracked file: {before} -> {after}")
+    torch.cuda.empty_cache()
+    log("stage_tools", f"all stage-tool checks passed in {time.perf_counter() - t0:.1f} s; "
+        f"tracked files unchanged; launches of the tool runs {total} | {card}")
+    return total
+
+
 # ---------------------------------------------------------------------- main
 
 
 def main():
     t0 = time.perf_counter()
+    seconds, lap = {}, [t0]
+
+    def done(phase):
+        now = time.perf_counter()
+        seconds[phase] = round(now - lap[0], 1)
+        lap[0] = now
+        log("seconds", f"{phase}: {seconds[phase]} s")
+
     card_name, smi = phase_device()
     dev = torch.device("cuda")
     phase_build()
+    done("1-2 device, build")
     from ffrnet_torch.api import FFRNet
     from ffrnet_torch.models.recnet import SS_KERNEL_CONFIG
 
@@ -3970,26 +4295,29 @@ def main():
         f"{ {k: (m.cfg.ss_impl, m.cfg.c4c_impl, m.cfg.channel_impl) for k, m in models.items()} }")
     errs = phase_kernels(fused, dev)
     errs.update(phase_warp_kernels(dev))
+    done("3 kernels")
     main_counts = phase_main(models, dev)
     counts = phase_counts(main_counts, phase_ingest(fused, dev))
+    done("4-6 main, ingest, counts")
     times, bound, library = phase_times(models, dev, smi)
+    done("7 times")
     phase_train(fused, dev, smi)
+    done("8 train")
     phase_driver(dev, smi)
-    for k, v in phase_serve(models, smi).items():
-        counts[k] += v
+    done("9 driver")
+    add_counts(counts, phase_serve(models, smi))
+    done("10 serve")
     int8_counts, int8_time = phase_int8(dev, smi)
-    for k, v in int8_counts.items():
-        counts[k] += v
-    for k, v in phase_export(models, dev, smi).items():
-        counts[k] += v
-    for k, v in phase_data_parallel(models, dev, smi).items():
-        counts[k] += v
-    for k, v in phase_model_axis(dev, smi).items():
-        counts[k] += v
-    for k, v in phase_extras(dev, smi).items():
-        counts[k] += v
-    for k, v in phase_int8_tools(dev, smi).items():
-        counts[k] += v
+    add_counts(counts, int8_counts)
+    done("11 int8")
+    for name, phase, args in (("12 export", phase_export, (models, dev, smi)),
+                              ("13 data_parallel", phase_data_parallel, (models, dev, smi)),
+                              ("14 model_axis", phase_model_axis, (dev, smi)),
+                              ("15 extras", phase_extras, (dev, smi)),
+                              ("16 int8_tools", phase_int8_tools, (dev, smi)),
+                              ("17 stage_tools", phase_stage_tools, (dev, smi))):
+        add_counts(counts, phase(*args))
+        done(name)
     if counts["int8_conv"] == 0:
         raise AssertionError("int8_conv never launched on the int8 path")
     times["int8_conv"], bound["int8_conv"] = int8_time[:2], int8_time[2]
@@ -4004,7 +4332,8 @@ def main():
          "library_ms": library.get(k),
          "ok": True}
         for k, (src, rep) in KERNELS.items()]}
-    log("done", f"all phases passed in {time.perf_counter() - t0:.1f} s")
+    log("done", f"all phases passed in {time.perf_counter() - t0:.1f} s; seconds by phase "
+        f"{json.dumps(seconds)}")
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,

@@ -140,6 +140,10 @@ def load_encoder(opts: Options, device) -> torch.nn.Module:
     return enc.to(device).eval()
 
 
+# the feature-cache fingerprint's tag of a build by the int8-static encoder
+INT8_CACHE_TAG = "int8-static-v1"
+
+
 def prepare_int8_encoder(encoder: torch.nn.Module, dataset, compute_dtype: str,
                          cal_images: int = 8) -> torch.nn.Module:
     """The int8-static frozen encoder of --int8_encoder 1
@@ -402,7 +406,7 @@ def _train(opts: Options, guard: PreemptionGuard) -> None:
                    if opts.int8_encoder else None)
         build_kw = dict(batch_size=opts.batch_size, compute_dtype=cfg.compute_dtype,
                         num_threads=opts.n_thread, encoder_factory=factory,
-                        fingerprint_extra="int8-static-v1" if opts.int8_encoder else "")
+                        fingerprint_extra=INT8_CACHE_TAG if opts.int8_encoder else "")
         if world > 1:  # rank 0 builds into the shared dir; the others wait for it
             from ffrnet_torch.training.feature_cache import build_feature_cache_shared
 
