@@ -1,7 +1,7 @@
 """Drive the PyTorch/H100 port's inference, ingest, training, serving,
 export, data-parallel and model-axis paths, its model-zoo extras and float
-tools, its int8 tools and its stage, cache-build and parity tools, on one
-NVIDIA GPU.
+tools, its int8 tools, its stage, cache-build and parity tools, and its
+encoder duel, stem duel, padded stem and AMSBound, on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -167,6 +167,24 @@ exits non-zero without a result line:
               float batch's scores against the CPU; the scale cache, tree
               and weights in a temporary directory, the tracked files
               unchanged
+ 18. enc_arms the encoder duel, the stem duel, the padded stem and
+              AMSBound at full width: tools/bench_train --enc_arms 1 at N=128 in bf16
+              and fp32 (float, BN-folded and int8_static encoders inside
+              the full train step, 10575 classes, Adam; 3 rounds of 10
+              steps an arm), and with --converge 60 at batch 64 in bf16
+              (the JAX run's settings); every train step's launches exact
+              per arm (24 se_gating; 52 int8_conv more for int8_static),
+              the steps per arm, the folded arm's fp32 first-step loss
+              within 1e-4 of the float arm's, the converge metrics finite;
+              tools/bench_stages --stem_duel 1 at N=256 in bf16 and fp32
+              (prod, im2col, padc; each row's launches exact per call, the
+              arms against prod under their bound); the channel-padded
+              encoder (models/optimize.pad_stem_input_channels, raw and
+              folded) against the unpadded on the card, fp32, N=256,
+              within 1e-4 (bit-equality reported), and refusing 1-channel
+              input; three AdaBound(amsbound=True) updates card against
+              CPU within 1e-6; the scale cache in a temporary directory,
+              the tracked files unchanged
 
 Each phase's seconds are logged as it ends, and all of them on the
 "[done]" line. The last three lines are the kernels' JSON record, the card's name and
@@ -4267,6 +4285,290 @@ def phase_stage_tools(dev, card):
     return total
 
 
+# ----------------------------------------------------------------- phase 18
+
+# bench_train --enc_arms: N=128 in bf16 and fp32 (3 warm-up steps an arm,
+# 3 rounds of 10), and the JAX run's convergence A/B (BASELINE.md:389: 60
+# Adam steps an arm at batch 64, bf16) after a one-round duel at N=64
+ENC_ARMS_RUNS = (["--enc_arms", "1", "--batch", "128", "--dtype", "bf16"],
+                 ["--enc_arms", "1", "--batch", "128", "--dtype", "fp32"],
+                 ["--enc_arms", "1", "--batch", "64", "--dtype", "bf16", "--rounds", "1",
+                  "--converge", "60"])
+# kernel launches of one train step of each arm (one 2N encoder pass)
+ENC_ARM_LAUNCHES = {"float": {"se_gating": 24}, "folded": {"se_gating": 24},
+                    "int8_static": {"se_gating": 24, "int8_conv": INT8_ENCODER_SITES}}
+# bench_stages --stem_duel 1 at N=256; 8 calls a row, no gather warp
+STEM_DUEL_RUNS = (["--batch", "256", "--dtype", "bf16", "--stem_duel", "1"],
+                  ["--batch", "256", "--dtype", "fp32", "--stem_duel", "1"])
+# a stem arm against prod on the same input: fp32 (TF32 off) 27 products
+# summed in another order; bf16 one rounding of the output at 8 bits
+STEM_TOL = {"fp32": PATH_TOL, "bf16": BF16_TOL}
+PAD_N = 256
+# the padded encoder against the unpadded on the card, fp32 with TF32 off:
+# zero channels add exactly 0, but cuDNN may pick another algorithm for
+# C=8 than for C=3 and sum in another order, through 49 conv layers: the
+# card-vs-CPU path bound
+PAD_TOL = PATH_TOL
+# AdaBound(amsbound=True) on the card against the CPU, the same gradients:
+# the same elementwise operations, an FMA or a rounding apart
+AMSBOUND_TOL = (1e-6, 1e-6)
+
+
+def arm_of(encoder):
+    from ffrnet_torch.models.quantize import quantized_sites
+
+    if quantized_sites(encoder):
+        return "int8_static"
+    return "folded" if encoder.input_layer[0].bias is not None else "float"
+
+
+def enc_arms_runs(card):
+    """bench_train --enc_arms (and --converge) runs: each train step's
+    launches exact per arm, the steps per arm, the folded arm's fp32 loss
+    of the first step against the float arm's, finite converge metrics.
+    -> the runs' launch counts."""
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ffrnet_torch.tools import bench_train as B
+
+    real, total = B.train_step, {k: 0 for k in KERNELS}
+    for argv in ENC_ARMS_RUNS:
+        records = []
+
+        def counted(encoder, state, batch, **kw):
+            before = launch_counts()
+            out = real(encoder, state, batch, **kw)
+            after = launch_counts()
+            records.append((arm_of(encoder), {k: after[k] - before[k] for k in KERNELS},
+                            out[1]["TotalLoss"]))
+            return out
+
+        B.train_step = counted
+        try:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            recs, _ = run_captured(B.main, argv)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = launch_counts()
+        finally:
+            B.train_step = real
+        rec = recs[0]
+        want_steps = B.WARMUP + rec["steps_timed"] * len(rec["round_ms_float"])
+        steps = {a: sum(r[0] == a for r in records) for a in B.ARMS}
+        conv_steps = int(argv[argv.index("--converge") + 1]) if "--converge" in argv else 0
+        want = {a: want_steps + (conv_steps if a in B.CONVERGE_ARMS else 0) for a in B.ARMS}
+        if steps != want:
+            raise AssertionError(f"bench_train {argv}: steps per arm {steps}, expected {want}")
+        expect = {k: 0 for k in KERNELS}
+        for arm, c, _ in records:
+            counts_are(f"bench_train {rec['dtype']} N={rec['batch']} {arm} step", c,
+                       **ENC_ARM_LAUNCHES[arm])
+            add_counts(expect, c)
+        if rec["scale_cache"] != "hit":  # the calibration pass: float sites
+            expect["se_gating"] += 24
+        counts_are(f"bench_train {argv}", counts, **expect)
+        add_counts(total, counts)
+        first = {a: float(next(r[2] for r in records if r[0] == a)) for a in B.ARMS}
+        if not all(np.isfinite(v) for v in first.values()):
+            raise AssertionError(f"bench_train {argv}: first-step losses {first}")
+        if rec["dtype"] == "fp32" and abs(first["folded"] - first["float"]) > (
+                TRAIN_LOSS_RTOL * abs(first["float"]) + 1e-6):
+            raise AssertionError(f"bench_train fp32: folded first-step loss {first['folded']} "
+                                 f"against float {first['float']} (rtol {TRAIN_LOSS_RTOL})")
+        per_step = {a: ENC_ARM_LAUNCHES[a] for a in B.ARMS}
+        log("enc_arms", f"bench_train --enc_arms {rec['dtype']} N={rec['batch']} in {secs:.1f} s "
+            f"(scale cache {rec['scale_cache']}): step_ms float {rec['step_ms_float']:.3f}, "
+            f"folded {rec['step_ms_folded']:.3f}, int8_static {rec['step_ms_int8_static']:.3f}; "
+            f"speedup_folded {rec['speedup_folded']:.4f}, speedup_int8_static "
+            f"{rec['speedup_int8_static']:.4f}; imgs/s float {rec['imgs_per_sec_float']:.1f}, "
+            f"int8_static {rec['imgs_per_sec_int8_static']:.1f}; first-step TotalLoss {first} "
+            f"(fp32: folded within rtol {TRAIN_LOSS_RTOL} of float); launches per step exact "
+            f"{per_step}, steps {steps} -> {counts} | {card}")
+        log("enc_arms", f"bench_train {' '.join(argv)} | {json.dumps(rec)}")
+        if conv_steps:
+            conv = recs[1]
+            vals = [v for m in conv["arms"].values() for v in m.values()]
+            if set(conv["arms"]) != set(B.CONVERGE_ARMS) or not all(np.isfinite(vals)):
+                raise AssertionError(f"bench_train --converge: {conv}")
+            log("enc_arms", f"bench_train --converge {conv_steps} (batch {conv['batch']}, "
+                f"{conv['num_classes']} classes, {conv['dtype']}): {json.dumps(conv['arms'])} | "
+                f"{card}")
+    return total
+
+
+def stem_duel_runs(dev, card):
+    """bench_stages --stem_duel 1 at N=256 in bf16 and fp32: each timed
+    row's launches exact per call, the three stem arms under their bound
+    on an input of their own. -> the runs' launch counts."""
+    import copy
+
+    from ffrnet_torch.models.irse import build_backbone
+    from ffrnet_torch.models.optimize import fold_backbone_bn
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+    from ffrnet_torch.tools import bench_stages
+    from ffrnet_torch.utils import profiling
+
+    total = {k: 0 for k in KERNELS}
+    stem = fold_backbone_bn(build_backbone(generator=gen(0))).input_layer[0]
+    for argv in STEM_DUEL_RUNS:
+        probe = CallLaunches(profiling, "time_op", lambda fn, x, iters: iters)
+        try:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            out, _ = run_captured(bench_stages.main, argv)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        finally:
+            probe.close()
+        res, dt = out["results"], out["dtype"]
+        duel = res["stem_duel"]
+        rows = [a for k in res for a in (duel if k == "stem_duel" else [k])]
+        if len(rows) != len(probe.records) or set(duel) != {"prod", "im2col", "padc"}:
+            raise AssertionError(f"bench_stages --stem_duel {dt}: {len(probe.records)} timed "
+                                 f"calls for {rows}")
+        want = {k: 0 for k in KERNELS}
+        for name, (iters, c) in zip(rows, probe.records):
+            calls = profiling.WARMUP + iters
+            per = {k: v * calls for k, v in STAGES_ROW_LAUNCHES.get(name, {}).items()}
+            counts_are(f"bench_stages {dt} {name} ({calls} calls)", c, **per)
+            add_counts(want, per)
+        counts_are(f"bench_stages --stem_duel {dt}", counts, **want)
+        add_counts(total, counts)
+        # the arms on an input of their own, against prod with the bound
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        conv = copy.deepcopy(stem).to(dev, dtype)
+        x = torch.randn(out["batch"], 3, 112, 112, generator=gen(180)).to(dev, dtype)
+        fns = bench_stages.stem_duel_fns(conv)
+        errs = {}
+        with torch.inference_mode():
+            ref = fns["prod"](x)
+            for arm, fn in fns.items():
+                errs[arm] = check_close(f"stem_duel {dt} {arm} vs prod", fn(x), ref,
+                                        *STEM_TOL[dt])
+        floor = stem_byte_floor_ms(out["batch"], dtype)
+        log("enc_arms", f"bench_stages --stem_duel {dt} N={out['batch']}: " + ", ".join(
+            f"{a} {v['ms']} ms (max_abs_err {v['max_abs_err']:.3e})" for a, v in duel.items())
+            + f"; stem row {res['stem']['ms']} ms; byte floor {floor:.4f} ms; arms vs prod on "
+            f"seed-180 normals {errs} (tol {STEM_TOL[dt]}); each row's launches exact -> "
+            f"{counts} | {card}")
+        log("enc_arms", f"bench_stages {' '.join(argv)} | {json.dumps(out)}")
+    return total
+
+
+def stem_byte_floor_ms(n, dtype):
+    """The stem conv's least time on the card, set by bytes: the input
+    read once, the output written once (weights are negligible)."""
+    item = torch.finfo(dtype).bits // 8
+    return (n * 3 * 112 * 112 + n * 64 * 112 * 112) * item / HBM_BYTES_PER_S * 1e3
+
+
+def padded_encoder_check(dev, card):
+    """pad_stem_input_channels on the card, fp32 (TF32 off), N=256: the
+    padded encoder's feature maps and embeddings against the unpadded one's
+    within PAD_TOL (bit-equality reported), 24 se_gating launches a
+    forward, and the ValueError on 1-channel input. -> launch counts."""
+    from ffrnet_torch.models.irse import build_backbone
+    from ffrnet_torch.models.optimize import fold_backbone_bn, pad_stem_input_channels
+    from ffrnet_torch.ops.kernels import launch_counts, reset_launch_counts
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    total = {k: 0 for k in KERNELS}
+    x = (torch.rand(PAD_N, 3, 112, 112, generator=gen(181)) * 2 - 1).to(dev)
+    for kind, enc in (("raw", build_backbone(generator=gen(0), device=dev)),
+                      ("folded", fold_backbone_bn(build_backbone(generator=gen(0),
+                                                                 device=dev)))):
+        padded = pad_stem_input_channels(enc)
+        if padded.input_layer[0].weight.shape != (64, 8, 3, 3):
+            raise AssertionError(f"padded stem {kind}: {padded.input_layer[0].weight.shape}")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with torch.inference_mode():
+            ref, got = enc(x), padded(x)
+        torch.cuda.synchronize()
+        counts_are(f"padded stem {kind} (2 forwards)", launch_counts(), se_gating=48)
+        add_counts(total, launch_counts())
+        errs = [check_close(f"padded stem {kind} {name}", g, r, *PAD_TOL)
+                for name, g, r in zip(("featmap", "embed"), got, ref)]
+        equal = all(torch.equal(g, r) for g, r in zip(got, ref))
+        try:
+            with torch.inference_mode():
+                padded(x[:2, :1])
+            raise AssertionError(f"padded stem {kind}: 1-channel input not refused")
+        except ValueError as e:
+            if "3-channel" not in str(e):
+                raise
+        with torch.inference_mode():
+            ms = {name: cuda_ms(lambda m=m: m(x), iters=5, warmup=2)
+                  for name, m in (("unpadded", enc), ("padded", padded))}
+        log("enc_arms", f"padded stem {kind} fp32 N={PAD_N}: featmap max_abs_err "
+            f"{errs[0]:.3e}, embed {errs[1]:.3e} (tol {PAD_TOL}), bit-equal {equal}; 1-channel "
+            f"input refused; encoder ms {ms} (CUDA events, 5 calls) | {card}")
+    return total
+
+
+def amsbound_check(dev, card):
+    """Three AdaBound(amsbound=True) updates of a (1024, 1024) parameter on
+    the card and on the CPU from the same gradients (their scale shrinking,
+    so the running maximum of v leads v): parameters and max_exp_avg_sq
+    within AMSBOUND_TOL."""
+    from ffrnet_torch.training.adabound import AdaBound
+
+    g = gen(182)
+    w0 = torch.randn(1024, 1024, generator=g)
+    grads = [s * torch.randn(1024, 1024, generator=g) for s in (1.0, 0.005, 0.005)]
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        p = torch.nn.Parameter(w0.clone().to(where))
+        opt = AdaBound([p], 1e-3, final_lr=0.1, weight_decay=5e-4, amsbound=True)
+        for gr in grads:
+            p.grad = gr.to(where)
+            opt.step()
+        runs.append((p.detach().cpu(), opt.state[p]["max_exp_avg_sq"].cpu(),
+                     opt.state[p]["exp_avg_sq"].cpu()))
+    (p_c, m_c, v_c), (p_h, m_h, _) = runs
+    e_p = check_close("amsbound parameters card vs CPU", p_c, p_h, *AMSBOUND_TOL)
+    e_m = check_close("amsbound max_exp_avg_sq card vs CPU", m_c, m_h, *AMSBOUND_TOL)
+    lead = (m_c > v_c).float().mean().item()
+    if lead < 0.5:
+        raise AssertionError(f"amsbound: the maximum leads v at {lead:.3f} of the elements")
+    log("enc_arms", f"AdaBound(amsbound=True) 3 updates of (1024, 1024), card vs CPU: parameters "
+        f"max_abs_err {e_p:.3e}, max_exp_avg_sq {e_m:.3e} (tol {AMSBOUND_TOL}); max above v at "
+        f"{lead:.3f} of the elements | {card}")
+
+
+def phase_enc_arms(dev, card):
+    """Phase 18 -> the launch counts of its runs, summed (the stem arms'
+    bound check and the timing of the padded encoder included). The scale
+    cache goes to a temporary directory; the tracked files keep their
+    bytes."""
+    import tempfile
+
+    from ffrnet_torch.tools import int8_cache
+
+    t0 = time.perf_counter()
+    before = {f: file_digest(f) for f in TRACKED_INT8_FILES}
+    total = {k: 0 for k in KERNELS}
+    default_file = int8_cache.default_cache_file
+    with tempfile.TemporaryDirectory(prefix="ffrnet_enc_arms_") as root:
+        int8_cache.default_cache_file = lambda: os.path.join(root, "scales.json")
+        try:
+            for part in (enc_arms_runs(card), stem_duel_runs(dev, card),
+                         padded_encoder_check(dev, card)):
+                add_counts(total, part)
+        finally:
+            int8_cache.default_cache_file = default_file
+    amsbound_check(dev, card)
+    after = {f: file_digest(f) for f in TRACKED_INT8_FILES}
+    if after != before:
+        raise AssertionError(f"enc_arms tools wrote a tracked file: {before} -> {after}")
+    torch.cuda.empty_cache()
+    log("enc_arms", f"all encoder-arm, stem and amsbound checks passed in "
+        f"{time.perf_counter() - t0:.1f} s; tracked files unchanged; launches {total} | {card}")
+    return total
+
+
 # ---------------------------------------------------------------------- main
 
 
@@ -4315,7 +4617,8 @@ def main():
                               ("14 model_axis", phase_model_axis, (dev, smi)),
                               ("15 extras", phase_extras, (dev, smi)),
                               ("16 int8_tools", phase_int8_tools, (dev, smi)),
-                              ("17 stage_tools", phase_stage_tools, (dev, smi))):
+                              ("17 stage_tools", phase_stage_tools, (dev, smi)),
+                              ("18 enc_arms", phase_enc_arms, (dev, smi))):
         add_counts(counts, phase(*args))
         done(name)
     if counts["int8_conv"] == 0:

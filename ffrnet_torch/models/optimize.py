@@ -1,5 +1,6 @@
-"""BN folding for the frozen encoder (counterpart of
-ffrnet_tpu/models/optimize.py::fold_backbone_bn).
+"""BN folding and the channel-padded stem for the frozen encoder
+(counterparts of ffrnet_tpu/models/optimize.py::fold_backbone_bn and
+::pad_stem_input_channels).
 
     y = BN(conv(x)) == conv'(x) + b',  w'[o] = w[o] * g_o,
     b'_o = beta_o - mean_o * g_o,      g = gamma / sqrt(var + eps)
@@ -15,6 +16,7 @@ from __future__ import annotations
 import copy
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ffrnet_torch.models.irse import Backbone
@@ -50,4 +52,26 @@ def fold_backbone_bn(model: Backbone) -> Backbone:
     lin.weight.copy_(lin.weight * g[:, None])
     lin.bias.copy_((lin.bias - bn.running_mean) * g + bn.bias)
     _identity(bn)
+    return model
+
+
+@torch.no_grad()
+def pad_stem_input_channels(model: Backbone, to: int = 8) -> Backbone:
+    """A copy of `model` whose stem conv weight is zero-padded on its input
+    channels from 3 to `to`: (64, to, 3, 3), `in_channels` = `to`.
+
+    Zero channels add exactly 0 to each product, and `Backbone.forward`
+    pads a 3-channel input to the weight's width, so the copy is a drop-in
+    on raw and BN-folded encoders (the bias, if folded, is kept). It
+    probes whether a C=3 convolution starves the tensor cores
+    (`tools/bench_stages.py --stem_duel 1`). A stem already `to` wide or
+    wider is left as it is. The caller's model is never modified.
+    """
+    model = copy.deepcopy(model)
+    conv = model.input_layer[0]
+    cin = conv.weight.shape[1]
+    if cin < to:
+        conv.weight = nn.Parameter(F.pad(conv.weight, (0, 0, 0, 0, 0, to - cin)),
+                                   requires_grad=conv.weight.requires_grad)
+        conv.in_channels = to
     return model

@@ -27,14 +27,26 @@ refuses them by name). --int8 1 adds `encoder_int8` (52 `int8_conv` + 24
 `se_gating` a call) and `recnet_int8` (15 `int8_conv` + 1
 `channel_branch`), their static scales through the scale cache
 (`tools/int8_cache.py`), and `int8_stage_shares`, the int8 serving
-pipeline as a sum of its stages. The JAX tool's --stem_duel, a probe of
-the TPU's matrix unit, is not ported.
+pipeline as a sum of its stages.
+
+--stem_duel 1 adds `stem_duel`, an A/B of the stem conv alone (no BN or
+PReLU), each arm's ms and its max_abs_err against `prod`:
+
+  prod    F.conv2d at C=3 (the encoder's stem)
+  im2col  F.unfold to (N, 27, H*W) patches, then one (., 27) x (27, 64)
+          product (cuBLAS and oneDNN accumulate a bf16 product in fp32
+          and round once), cast back, plus the bias
+  padc    both operands zero-padded from 3 to 8 input channels
+          (`models/optimize.py::pad_stem_input_channels`' weight)
+
+The C=3 input gives the implicit GEMM a 27-wide contraction; the duel
+measures what that costs on the tensor cores.
 
 Rows named in `stage_flops` carry `tflops`. An fp32 run switches TF32 off
 (process-wide, as `FFRNet.prepare` does), so fp32 is fp32.
 
     python -m ffrnet_torch.tools.bench_stages [--batch 256] [--dtype bf16]
-        [--iters 8] [--fold_bn 1] [--int8 0] [--device cuda]
+        [--iters 8] [--fold_bn 1] [--int8 0] [--stem_duel 0] [--device cuda]
 
 Prints one JSON line {"batch", "dtype", "results"} and returns it as a dict.
 """
@@ -92,6 +104,53 @@ def stem_fn(model):
                                                 padding=1)), prelu.weight, axis=1)
 
 
+def stem_patches(x):
+    """(N, 27, H*W) 3x3 patches of the NCHW stem input (stride 1, padding
+    1), rows in (channel, kernel row, kernel column) order: the order of
+    lax.conv_general_dilated_patches and of an OIHW weight's rows."""
+    return F.unfold(x, 3, padding=1)
+
+
+def stem_duel_fns(conv):
+    """{arm: fn(x)} of the stem conv alone, NCHW (the JAX tool's arms,
+    ffrnet_tpu/tools/bench_stages.py:177-219)."""
+    w, b = conv.weight, conv.bias
+    w_flat = w.reshape(w.shape[0], -1).t()  # (27, 64); JAX's (2, 0, 1, 3) of HWIO
+    w_pad = F.pad(w, (0, 0, 0, 0, 0, 8 - w.shape[1]))
+
+    def prod(x):
+        return F.conv2d(x, w, b, stride=1, padding=1)
+
+    def im2col(x):
+        n, _, h, wd = x.shape
+        y = torch.matmul(stem_patches(x).transpose(1, 2), w_flat)  # (N, H*W, 64)
+        y = y.transpose(1, 2).reshape(n, -1, h, wd)
+        return y if b is None else y + b.reshape(1, -1, 1, 1)
+
+    def padc(x):
+        xp = F.pad(x, (0, 0, 0, 0, 0, w_pad.shape[1] - x.shape[1]))
+        return F.conv2d(xp, w_pad, b, stride=1, padding=1)
+
+    return {"prod": prod, "im2col": im2col, "padc": padc}
+
+
+def stem_duel(conv, x, iters):
+    """{arm: {"ms", "max_abs_err"}}: each arm's ms per call (time_op) and
+    its largest difference from `prod` on `x`, in fp32."""
+    from ffrnet_torch.utils.profiling import time_op
+
+    fns = stem_duel_fns(conv)
+    with torch.inference_mode():
+        ref = fns["prod"](x).float()
+    duel = {}
+    for name, fn in fns.items():
+        with torch.inference_mode():
+            err = float((fn(x).float() - ref).abs().max())
+        duel[name] = {"ms": round(time_op(fn, x, iters), 3), "max_abs_err": err}
+        print(f"[stem_duel] {name}: {duel[name]}", file=sys.stderr, flush=True)
+    return duel
+
+
 def stage_fn(model, lo, hi):
     """The units `body[lo:hi]` of the encoder, run in order."""
     units = model.body[lo:hi]
@@ -113,6 +172,9 @@ def main(argv=None):
     p.add_argument("--int8", type=int, default=0,
                    help="add int8-static encoder/RecNet rows (through the scale cache) and "
                         "the int8 serving-pipeline stage-share table")
+    p.add_argument("--stem_duel", type=int, default=0,
+                   help="A/B the stem conv alone: F.conv2d at C=3, an im2col product and "
+                        "a conv on channels zero-padded to 8, each against the first")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
@@ -185,6 +247,9 @@ def main(argv=None):
     if args.iters <= 4:  # the gather warp is slow; only on short runs
         record("warp_gather", time_op(lambda r: warp_affine(r, mats, out_hw=(112, 112)),
                                       raw, 2))
+
+    if args.stem_duel:
+        results["stem_duel"] = stem_duel(enc.input_layer[0], x, args.iters)
 
     if args.int8:
         from ffrnet_torch.models.quantize import quantize_encoder, quantize_recnet

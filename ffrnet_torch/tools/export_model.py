@@ -29,6 +29,13 @@ and it is tied to the PyTorch version that wrote it.
 The default device is the card, and the tool raises without one; `--device
 cpu` exports and checks on the CPU (the twins run there). A round trip
 (save, load, one call against `FFRNet.embed`) is built in.
+
+The JAX tool's `--platforms` (several XLA lowerings, such as tpu and cpu,
+in one artifact) has no counterpart: an ExportedProgram holds a graph of
+ATen and `ffrnet::` operators, not a lowering for a backend, and each
+operator dispatches at run time to the kernel for its inputs' device
+(CUDA, or the plain twin on the CPU). There is nothing per platform to
+embed.
 """
 
 from __future__ import annotations

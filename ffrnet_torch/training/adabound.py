@@ -9,7 +9,8 @@ lr * sqrt(1 - b2^t) / (1 - b1^t) / (sqrt(v_t) + eps) is clamped to
 which closes around final_lr as t grows. final_lr follows the schedule:
 it is scaled by lr_t / base_lr (the group's "lr" over its "base_lr").
 Weight decay is L2 into the gradient. FFR-Net takes final_lr = 100 * lr.
-The JAX version's amsbound variant, which no caller sets, is not ported.
+With amsbound=True the step divides by the running maximum of v_t, kept in
+the state as "max_exp_avg_sq" (AMSBound, the same paper), in place of v_t.
 """
 
 from __future__ import annotations
@@ -20,10 +21,10 @@ import torch
 class AdaBound(torch.optim.Optimizer):
     def __init__(self, params, lr: float, *, base_lr: float | None = None,
                  final_lr: float = 0.1, betas=(0.9, 0.999), gamma: float = 1e-3,
-                 eps: float = 1e-8, weight_decay: float = 0.0):
+                 eps: float = 1e-8, weight_decay: float = 0.0, amsbound: bool = False):
         defaults = dict(lr=lr, base_lr=lr if base_lr is None else base_lr,
                         final_lr=final_lr, betas=betas, gamma=gamma, eps=eps,
-                        weight_decay=weight_decay)
+                        weight_decay=weight_decay, amsbound=amsbound)
         super().__init__(params, defaults)
 
     @torch.no_grad()
@@ -45,11 +46,15 @@ class AdaBound(torch.optim.Optimizer):
                     st["step"] = 0
                     st["exp_avg"] = torch.zeros_like(p)
                     st["exp_avg_sq"] = torch.zeros_like(p)
+                    if group["amsbound"]:
+                        st["max_exp_avg_sq"] = torch.zeros_like(p)
                 st["step"] += 1
                 t = st["step"]
                 m, v = st["exp_avg"], st["exp_avg_sq"]
                 m.mul_(b1).add_(g, alpha=1 - b1)
                 v.mul_(b2).addcmul_(g, g, value=1 - b2)
+                if group["amsbound"]:
+                    v = torch.maximum(st["max_exp_avg_sq"], v, out=st["max_exp_avg_sq"])
                 step_size = group["lr"] * (1 - b2 ** t) ** 0.5 / (1 - b1 ** t)
                 lower = flr * (1 - 1 / (gamma * t + 1))
                 upper = flr * (1 + 1 / (gamma * t))

@@ -2,8 +2,8 @@
 FLOP counts bit for bit, the timed stem and stage slices against the JAX
 package's unit loop on the same weights (fp32, N=2), and a run of the tool
 at the smallest size with its JSON keys against the JAX tool's. Also: each
-tool of the last slice (bench_stages, bench_cache_build, parity_check)
-defaults to the card and raises without one."""
+tool of the last slices (bench_stages, bench_cache_build, parity_check,
+bench_train) defaults to the card and raises without one."""
 
 import json
 
@@ -15,7 +15,8 @@ import torch
 
 from ffrnet_torch.checkpoint.convert import backbone_state_dict
 from ffrnet_torch.models.irse import build_backbone
-from ffrnet_torch.tools import bench_cache_build, bench_stages, int8_cache, parity_check
+from ffrnet_torch.tools import (bench_cache_build, bench_stages, bench_train, int8_cache,
+                                parity_check)
 from ffrnet_tpu.models import irse as jirse
 from ffrnet_tpu.ops import nn as jops
 from ffrnet_tpu.tools import bench_stages as jbench_stages
@@ -23,13 +24,15 @@ from ffrnet_tpu.tools import bench_stages as jbench_stages
 torch.set_num_threads(1)
 
 # ffrnet_tpu/tools/bench_stages.py:124-175 (rows; --iters <= 4 adds
-# warp_gather), :235-261 (--int8 1); warp_tiled and warp_rowcrop are XLA
-# strategies of the TPU, and the port times warp_full in their place
+# warp_gather), :177-219 (--stem_duel 1), :235-261 (--int8 1); warp_tiled
+# and warp_rowcrop are XLA strategies of the TPU, and the port times
+# warp_full in their place
 JAX_ROWS = {"stem", "stage1", "stage2", "stage3", "stage4", "encoder_full", "recnet",
             "cp2tform_solve", "warp_tiled", "warp_band", "warp_rowcrop", "warp_gather",
-            "encoder_int8", "recnet_int8", "int8_stage_shares"}
+            "stem_duel", "encoder_int8", "recnet_int8", "int8_stage_shares"}
 PORT_ROWS = (JAX_ROWS - {"warp_tiled", "warp_rowcrop"}) | {"warp_full"}
 SHARE_STAGES = {"cp2tform_solve", "warp_band", "encoder_int8", "recnet_int8"}
+STEM_DUEL_ARMS = {"prod", "im2col", "padc"}
 TOL = 1e-5
 # (name, unit range) of the rows held against the JAX package's loop, and
 # the NHWC input shape of each
@@ -104,13 +107,14 @@ def test_stage_rows_match_jax_unit_loop(weights, name, units, shape):
 
 
 def test_bench_stages_cpu(capsys, tmp_path, monkeypatch):
-    """main at batch 2, one call a row, fp32, --int8 1: the JAX tool's rows
-    (warp_full for warp_tiled and warp_rowcrop), TFLOP/s on the rows with a
-    FLOP count, the shares summing to sum_ms, the scale cache in tmp_path."""
+    """main at batch 2, one call a row, fp32, --int8 1 --stem_duel 1: the
+    JAX tool's rows (warp_full for warp_tiled and warp_rowcrop), TFLOP/s on
+    the rows with a FLOP count, the shares summing to sum_ms, the stem
+    duel's three arms within 1e-5 of prod, the scale cache in tmp_path."""
     cache = tmp_path / "scales.json"
     monkeypatch.setattr(int8_cache, "default_cache_file", lambda: str(cache))
     out = bench_stages.main(["--device", "cpu", "--batch", "2", "--iters", "1", "--dtype",
-                             "fp32", "--int8", "1"])
+                             "fp32", "--int8", "1", "--stem_duel", "1"])
     printed = capsys.readouterr()
     assert json.loads(printed.out.strip().splitlines()[-1]) == json.loads(json.dumps(out))
     assert "enc scale cache: miss" in printed.err and "recnet scale cache: miss" in printed.err
@@ -119,8 +123,12 @@ def test_bench_stages_cpu(capsys, tmp_path, monkeypatch):
     res = out["results"]
     assert set(res) == PORT_ROWS
     flops = bench_stages.stage_flops(2)
+    assert set(res["stem_duel"]) == STEM_DUEL_ARMS
+    for arm, entry in res["stem_duel"].items():
+        assert set(entry) == {"ms", "max_abs_err"} and entry["ms"] > 0, arm
+        assert entry["max_abs_err"] <= TOL, arm
     for name, entry in res.items():
-        if name == "int8_stage_shares":
+        if name in ("int8_stage_shares", "stem_duel"):
             continue
         assert entry["ms"] > 0
         assert ("tflops" in entry) == (name in flops), name
@@ -139,8 +147,8 @@ def test_bench_stages_cpu(capsys, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("tool,argv", [
     (bench_stages, []), (bench_cache_build, []),
-    (parity_check, ["--encoder", "se50.pth"])], ids=["bench_stages", "bench_cache_build",
-                                                   "parity_check"])
+    (parity_check, ["--encoder", "se50.pth"]), (bench_train, [])],
+    ids=["bench_stages", "bench_cache_build", "parity_check", "bench_train"])
 def test_tools_default_to_the_card(tool, argv):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device runs")

@@ -9,6 +9,7 @@ seed. fp32 unless a test says otherwise.
 """
 
 import dataclasses
+import io
 
 import numpy as np
 import pytest
@@ -105,6 +106,59 @@ def test_optimizer_matches_jax(name):
         # atol 1e-6 (the JAX package's own bound for optax vs torch.optim)
         np.testing.assert_allclose(p.detach().numpy(), np.asarray(params["w"]), rtol=1e-6,
                                    atol=1e-6, err_msg=f"update {i}")
+
+
+@pytest.mark.parametrize("amsbound", [False, True], ids=["adabound", "amsbound"])
+def test_adabound_amsbound_matches_jax(amsbound):
+    """AdaBound(amsbound=) against ffrnet_tpu's adabound(amsbound=) on six
+    gradients: one large, three at 1/200 of its scale (so v decays and its
+    running maximum leads it), then two large again, with L2 weight decay and a schedule that halves the lr at the
+    third update; after three updates the optimizer's state dict goes
+    through torch.save/torch.load into a fresh one, which takes the other
+    three. The denominator's state ("max_exp_avg_sq") equals JAX's
+    max_exp_avg_sq. Bound: optax's and torch.optim's own (atol 1e-6)."""
+    from ffrnet_torch.training.adabound import AdaBound
+    from ffrnet_tpu.training.adabound import adabound as j_adabound
+
+    rng = np.random.default_rng(4)
+    w0 = rng.standard_normal((4, 3)).astype(np.float32)
+    grads = [s * rng.standard_normal((4, 3)).astype(np.float32)
+             for s in (1.0, 0.005, 0.005, 0.005, 0.5, 2.0)]
+    lr, sched = 1e-3, j_sched.multistep_lr(1e-3, (3,), 0.5)
+    tx = j_adabound(sched, base_lr=lr, final_lr=100 * lr, weight_decay=5e-4, amsbound=amsbound)
+    params = {"w": jnp.asarray(w0)}
+    st = tx.init(params)
+    p = torch.nn.Parameter(_t(w0.copy()))
+    opt = AdaBound([p], lr, base_lr=lr, final_lr=100 * lr, weight_decay=5e-4, amsbound=amsbound)
+    t_sched_fn = t_sched.multistep_lr(lr, (3,), 0.5)
+    for i, g in enumerate(grads):
+        if i == 3:  # the state dict round trip, into a fresh optimizer
+            buf = io.BytesIO()
+            torch.save(opt.state_dict(), buf)
+            buf.seek(0)
+            sd = torch.load(buf)
+            assert ("max_exp_avg_sq" in sd["state"][0]) == amsbound
+            assert sd["param_groups"][0]["amsbound"] is amsbound
+            opt = AdaBound([p], lr, base_lr=lr, final_lr=100 * lr, weight_decay=5e-4)
+            opt.load_state_dict(sd)
+            assert opt.param_groups[0]["amsbound"] is amsbound
+        for group in opt.param_groups:
+            group["lr"] = t_sched_fn(i)
+        upd, st = tx.update({"w": jnp.asarray(g)}, st, params)
+        params = optax.apply_updates(params, upd)
+        p.grad = _t(g.copy())
+        opt.step()
+        np.testing.assert_allclose(p.detach().numpy(), np.asarray(params["w"]), rtol=1e-6,
+                                   atol=1e-6, err_msg=f"update {i}")
+        state = opt.state[p]
+        if amsbound:
+            np.testing.assert_allclose(state["max_exp_avg_sq"].numpy(),
+                                       np.asarray(st.max_exp_avg_sq["w"]), rtol=1e-6, atol=0)
+            assert (state["max_exp_avg_sq"] >= state["exp_avg_sq"]).all()
+            if i == 3:  # the small gradients left the maximum above v
+                assert (state["max_exp_avg_sq"] > state["exp_avg_sq"]).float().mean() > 0.5
+        else:
+            assert "max_exp_avg_sq" not in state
 
 
 def test_clip_value_composes():
